@@ -1,0 +1,68 @@
+"""vector_database_tpu_torch: the vector index engine on PyTorch and CUDA.
+
+A port of ``vector_database_tpu`` (JAX, TPU) to PyTorch, with the serving
+kernel written by hand in CUDA C++ for NVIDIA Hopper (``csrc/``). Public
+names and signatures follow the JAX package, so a caller or a test finds
+each counterpart by name. This package never imports JAX.
+
+The ported slice is the main path:
+
+- ``build_index_fused``: the level-synchronous variance-split BSP build,
+  which yields the leaf-major matrix (``builder.py``,
+  ``ops/sorted_build.py``);
+- ``pack_database`` and the bucketed scan, full or pruned by block
+  probes, with an exact f32 rerank (``ops/packed_knn.py`` over the CUDA
+  kernel in ``ops/bucket_scan.py``), behind ``PackedServer``
+  (``serving.py``);
+- the exact oracle (``ops/exact.py``) and the exact radius ``search`` /
+  ``knn`` through the tree (``search.py``).
+
+Tensors stay on the device they are given (or the ``device=`` argument);
+on CPU tensors the kernel's plain torch version runs instead.
+"""
+
+from vector_database_tpu_torch.builder import build_index_fused
+from vector_database_tpu_torch.models.bsp import BSPIndex
+from vector_database_tpu_torch.ops.exact import (
+    exact_ball,
+    exact_knn,
+    exact_mips,
+    normalize_rows,
+)
+from vector_database_tpu_torch.ops.packed_knn import (
+    PackedDB,
+    calibrate_probes,
+    pack_database,
+    pallas_scan_knn,
+    pallas_scan_knn_packed,
+    pallas_scan_knn_packed_rt,
+)
+from vector_database_tpu_torch.search import (
+    SearchResult,
+    calibrate_radius,
+    knn,
+    search,
+)
+from vector_database_tpu_torch.serving import PackedServer
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BSPIndex",
+    "PackedDB",
+    "PackedServer",
+    "SearchResult",
+    "build_index_fused",
+    "calibrate_probes",
+    "calibrate_radius",
+    "exact_ball",
+    "exact_knn",
+    "exact_mips",
+    "knn",
+    "normalize_rows",
+    "pack_database",
+    "pallas_scan_knn",
+    "pallas_scan_knn_packed",
+    "pallas_scan_knn_packed_rt",
+    "search",
+]

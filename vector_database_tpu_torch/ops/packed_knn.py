@@ -1,0 +1,557 @@
+"""Packed bucketed k-NN scan: the serving path (port of
+``vector_database_tpu/ops/pallas_knn.py``, bf16 packs).
+
+A database is packed once (``pack_database``): rows are cut into blocks of
+``block`` rows, each stored transposed and scaled as ``-2v`` in bf16
+(``vb [nb, d_pad, block]``) beside its f32 norm row ``|v|^2``
+(``vn [nb, 1, block]``) and per-cell pruning summaries. A serve call runs
+the bucketed scan kernel (``ops/bucket_scan.py``): for each query and each
+of ``m`` buckets (bucket = column mod m) it keeps the smallest score
+``|v|^2 - 2 q.v`` over the streamed blocks, with the winning block's id in
+the score's low mantissa bits. The ``k * oversample`` best buckets then
+expand to their ``block / m`` candidate rows each, and an exact f32 rerank
+of those rows gives the answer.
+
+A true neighbor is lost only when a closer true neighbor lands in the same
+bucket (expected loss ~(k-1)/(2m) per neighbor) or when bf16 rounding
+pushes its bucket below the shortlist cut, which oversampling absorbs.
+
+``probes=`` is the pruned mode: queries are grouped so that each group of
+``q_tile`` sorted queries shares one list of ``probes`` blocks, chosen by
+cell-centroid distance, and only those blocks stream.
+
+The int8 packs (``dtype="int8"``/``"int8f"``) and tombstone masking
+(``PackedDB.mask_rows``, ``row_mask=``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from vector_database_tpu_torch.ops.bucket_scan import bucket_scan
+from vector_database_tpu_torch.ops.exact import (
+    as_f32,
+    atleast_2d,
+    full_f32,
+    normalize_rows,
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# The TPU kernels' double-buffered VMEM windows may claim this much; kept
+# so that the default block (and with it the bucket layout and results)
+# is the same as the JAX package's for every dimensionality.
+_VMEM_WINDOW_BUDGET = 40 * 1024 * 1024
+
+
+def auto_block(
+    d: int,
+    *,
+    d_align: int = 128,
+    dtype: str = "bfloat16",
+    buckets: int = 4096,
+    start: int = 8192,
+) -> int:
+    """The ``block=None`` default of ``pack_database``: the largest
+    power-of-two block (<= ``start``) whose two ``[d_pad, block]`` windows
+    fit the TPU kernel's budget at dimensionality ``d`` (8192 up to
+    d=640). The port keeps the rule so that default packs bucket alike."""
+    itemsize = 1 if dtype in ("int8", "int8f") else 2
+    if dtype in ("int8", "int8f"):
+        d_align = max(d_align, 32)
+    d_pad = _round_up(max(d, 1), d_align)
+    block = start
+    while block > 512 and 2 * block * (d_pad * itemsize + 4) > \
+            _VMEM_WINDOW_BUDGET:
+        block //= 2
+    if block > buckets and block % buckets:
+        block = buckets
+    return block
+
+
+def _to_tensor(x, device):
+    """numpy (including ml_dtypes bfloat16) or tensor -> tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(x, device=device)
+
+
+@dataclasses.dataclass
+class PackedDB:
+    """Database packed for the serving kernel, built once per database.
+
+    ``vectors`` is the original f32 matrix (referenced, not copied) for
+    the exact rerank; ``cent``/``rad`` are the per-cell pruning summaries
+    (radius -3e38 marks an all-padding cell)."""
+
+    vb: torch.Tensor  # [nb, d_pad, block] bf16, -2v (-v for ip)
+    vn: torch.Tensor  # [nb, 1, block] f32 |v|^2 (3e38 at padding)
+    vectors: torch.Tensor  # [N, D] f32
+    n: int
+    block: int
+    m: int
+    bits: int
+    metric: str = "l2"  # "l2" | "cosine" | "ip"
+    cent: torch.Tensor | None = None  # [nb * cells, D] f32
+    rad: torch.Tensor | None = None  # [nb * cells] f32
+
+    @property
+    def device(self) -> torch.device:
+        return self.vb.device
+
+    @classmethod
+    def from_numpy(cls, arrays, meta, *, device=None) -> "PackedDB":
+        """Pack from numpy buffers ``arrays`` (``vb``, ``vn``,
+        ``vectors``, optional ``cent``/``rad``; ``vb`` may be an ml_dtypes
+        bfloat16 array) and ``meta`` (``n``, ``block``, ``m``, ``bits``,
+        optional ``metric``)."""
+        opt = {key: _to_tensor(arrays[key], device)
+               for key in ("cent", "rad") if arrays.get(key) is not None}
+        return cls(
+            vb=_to_tensor(arrays["vb"], device),
+            vn=_to_tensor(arrays["vn"], device),
+            vectors=_to_tensor(arrays["vectors"], device),
+            n=int(meta["n"]), block=int(meta["block"]), m=int(meta["m"]),
+            bits=int(meta["bits"]), metric=meta.get("metric", "l2"), **opt,
+        )
+
+
+def _summary_cell(block: int) -> int:
+    """Pruning summary granularity: 32 cells per block (cell >= 32 rows,
+    clamped for tiny blocks; one cell per block if 32 does not divide)."""
+    cell = min(block, max(32, block // 32))
+    return block if block % cell else cell
+
+
+def _cell_summary_body(vblk, rblk, *, cpb, cell):
+    """Per-cell ``(centroid, radius)`` of blocks of zeroed rows:
+    ``vblk [..., block, d]`` with non-real rows zeroed, ``rblk [...,
+    block]`` the real-row mask. Empty cells get radius -3e38 (the
+    never-select sentinel)."""
+    d = vblk.shape[-1]
+    lead = vblk.shape[:-2]
+    vc = vblk.reshape(*lead, cpb, cell, d)
+    rc = rblk.reshape(*lead, cpb, cell)
+    cnt = rc.sum(dim=-1)
+    cent = vc.sum(dim=-2) / torch.clamp(cnt, min=1)[..., None]
+    diff = vc - cent[..., None, :]
+    d2 = torch.where(rc, torch.sum(diff * diff, dim=-1), 0.0)
+    rad = torch.sqrt(d2.amax(dim=-1))
+    return cent, torch.where(cnt > 0, rad, -3.0e38)
+
+
+def _pack_blockwise(vectors, *, block, d_align, ip, n_valid, cell):
+    """The bf16 pack (zeroing, norm row, -2x bf16 transpose) and the
+    pruning summaries, a chunk of blocks at a time, so no full-size f32
+    temporary lives beside the matrix. Rows past ``n_valid`` (caller
+    padding, possibly +inf) are zeroed and get the 3e38 norm sentinel."""
+    n, d = vectors.shape
+    nv = n if n_valid is None else n_valid
+    d_pad = _round_up(d, d_align)
+    nb = _round_up(n, block) // block
+    cpb = block // cell
+    scale = -1.0 if ip else -2.0
+    dev = vectors.device
+    vb = torch.empty((nb, d_pad, block), dtype=torch.bfloat16, device=dev)
+    vn = torch.empty((nb, 1, block), dtype=torch.float32, device=dev)
+    cent = torch.empty((nb, cpb, d), dtype=torch.float32, device=dev)
+    rad = torch.empty((nb, cpb), dtype=torch.float32, device=dev)
+    # ~256 MB of f32 temporaries per chunk
+    chunk = max(1, (1 << 26) // (block * d_pad))
+    for b0 in range(0, nb, chunk):
+        b1 = min(nb, b0 + chunk)
+        r0, r1 = b0 * block, min(n, b1 * block)
+        nblk = b1 - b0
+        blk = torch.zeros((nblk * block, d_pad), dtype=torch.float32,
+                          device=dev)
+        blk[: r1 - r0, :d] = vectors[r0:r1]
+        real = torch.arange(r0, r0 + nblk * block, device=dev) < nv
+        blk = torch.where(real[:, None], blk, 0.0)
+        vnb = (torch.zeros(nblk * block, device=dev) if ip
+               else torch.sum(blk * blk, dim=1))
+        # padded/sentinel rows never win a bucket (large finite: +inf
+        # would break the encode's integer bit operations)
+        vn[b0:b1] = torch.where(real, vnb, 3.0e38).view(nblk, 1, block)
+        vb[b0:b1] = (scale * blk).to(torch.bfloat16).view(
+            nblk, block, d_pad).transpose(1, 2)
+        c, r = _cell_summary_body(
+            blk.view(nblk, block, d_pad), real.view(nblk, block),
+            cpb=cpb, cell=cell,
+        )
+        cent[b0:b1] = c[..., :d]
+        rad[b0:b1] = r
+        del blk
+    return vb, vn, cent.reshape(nb * cpb, d), rad.reshape(nb * cpb)
+
+
+def pack_database(
+    vectors,
+    *,
+    block: int | None = None,
+    buckets: int = 4096,
+    dtype: str = "bfloat16",
+    d_align: int = 128,
+    metric: str = "l2",
+    rows_valid: int | None = None,
+    device=None,
+) -> PackedDB:
+    """Pack a database for ``pallas_scan_knn_packed``.
+
+    ``buckets`` (m): shortlist buckets across the whole database; expected
+    recall@k ~ 1 - (k-1)/(2m) minus bf16 rounding noise. ``block``: rows
+    per streamed block, a multiple of ``buckets`` (``None``: ``auto_block``).
+    ``d_align``: the packed D axis is padded to this multiple (the CUDA
+    kernel takes any multiple of 16). ``metric``: ``"l2"``, ``"cosine"``
+    (rows unit-normalized here, queries at serve time) or ``"ip"``
+    (maximum inner product: ``-v`` blocks, zero norm row).
+    ``rows_valid``: rows past this count are caller padding, excluded from
+    bucket selection; they should hold +inf so the rerank never returns
+    them. ``dtype``: only ``"bfloat16"`` is ported.
+    """
+    vectors = as_f32(vectors, device)
+    if metric not in ("l2", "cosine", "ip"):
+        raise ValueError(f"unknown metric: {metric}")
+    if dtype in ("int8", "int8f"):
+        raise NotImplementedError(
+            f"dtype={dtype!r} packs are not ported yet; use 'bfloat16'"
+        )
+    if dtype not in ("bfloat16", "bf16"):
+        raise ValueError(f"unknown pack dtype: {dtype}")
+    n, d = vectors.shape
+    if block is None:
+        block = auto_block(d, d_align=d_align, dtype=dtype, buckets=buckets)
+    if n == 0:
+        raise ValueError("pack_database: empty database (0 rows)")
+    if rows_valid is None:
+        rows_valid = n
+    if metric == "cosine":
+        if rows_valid < n:
+            # normalize only the real rows; keep the +inf sentinels
+            vectors = torch.cat(
+                [normalize_rows(vectors[:rows_valid]), vectors[rows_valid:]]
+            )
+        else:
+            vectors = normalize_rows(vectors)
+    m = min(buckets, block)
+    if block % m:
+        raise ValueError("block must be a multiple of buckets")
+    nb = _round_up(n, block) // block
+    bits = max(1, (nb - 1).bit_length())
+    if bits > 16:
+        raise ValueError(
+            "database too large for this block size: raise `block` so "
+            "that the number of blocks stays <= 65536"
+        )
+    vb, vn, cent, rad = _pack_blockwise(
+        vectors, block=block, d_align=d_align, ip=metric == "ip",
+        n_valid=None if rows_valid == n else rows_valid,
+        cell=_summary_cell(block),
+    )
+    return PackedDB(
+        vb=vb, vn=vn, vectors=vectors, n=n, block=block, m=m, bits=bits,
+        metric=metric, cent=cent, rad=rad,
+    )
+
+
+def _block_map(pack: PackedDB, queries, *, q_tile: int, probes: int):
+    """Pruned-mode block selection: ``(order, bmap)``. ``order`` sorts the
+    queries so tile-mates want the same blocks; ``bmap [tiles, probes]``
+    int32 lists each tile's blocks, best first.
+
+    The key of a (query, block) pair is the query's distance to the
+    block's nearest cell centroid, from a bf16-input, f32-accumulated dot
+    (``|q|^2`` dropped). Every tile member's top-1 block is forced into
+    its tile's list. All orderings are stable, so equal keys keep the
+    lower index, as ``lax.top_k``/``argsort`` do in the JAX package: the
+    first ``p`` entries of a wider map are then the ``probes=p`` map."""
+    nb = pack.vb.shape[0]
+    q = queries.shape[0]
+    q_pad = _round_up(q, q_tile)
+    tiles = q_pad // q_tile
+    cent, rad = pack.cent, pack.rad
+    cpb = cent.shape[0] // nb
+    with full_f32():
+        dots = queries.to(torch.bfloat16).float() @ \
+            cent.to(torch.bfloat16).float().T  # [Q, nc]
+    if pack.metric == "ip":
+        key = -dots
+    else:
+        cc = torch.sum(cent * cent, dim=1)
+        key = cc[None, :] - 2.0 * dots
+    # all-padding cells (radius sentinel) are never selected
+    key = torch.where(rad[None, :] < -1e38, float("inf"), key)
+    key = key.view(q, nb, cpb).amin(dim=2)  # [Q, nb]
+    top1 = torch.argmin(key, dim=1)
+    order = torch.argsort(top1, stable=True)
+    key_s = torch.full((q_pad, nb), float("inf"), device=key.device)
+    key_s[:q] = key[order]  # pad queries never steer selection
+    tile_key = key_s.view(tiles, q_tile, nb).amin(dim=1)
+    forced = torch.zeros((q_pad, nb), dtype=torch.bool, device=key.device)
+    forced[torch.arange(q, device=key.device), top1[order]] = True
+    forced = forced.view(tiles, q_tile, nb).any(dim=1)
+    tile_key = torch.where(forced, float("-inf"), tile_key)
+    bmap = torch.sort(tile_key, dim=1, stable=True).indices[:, :probes]
+    return order, bmap.to(torch.int32).contiguous()
+
+
+def _shortlist_rows(
+    pack: PackedDB,
+    queries: torch.Tensor,  # [Q, D] float32, already metric-normalized
+    *,
+    k: int,
+    q_tile: int = 256,
+    oversample: int | None = None,
+    probes: int | None = None,
+    probes_max: int | None = None,
+):
+    """Kernel scan + bucket top-k: the ``[Q, k_scan * block/m]`` candidate
+    row ids (may include ids >= ``pack.n`` and sentinel rows; the caller's
+    exact rerank masks them). Never touches ``pack.vectors``.
+
+    ``probes``: stream only this many blocks per query tile (the pruned
+    mode). ``probes_max``: build the map ``min(probes_max, nb)`` wide and
+    clip ``probes`` into ``[1, width]`` (the runtime-probes form: the
+    result equals the static ``probes`` call)."""
+    block, m, bits = pack.block, pack.m, pack.bits
+    nb, d_pad, _ = pack.vb.shape
+    q, d = queries.shape
+    w = block // m
+    if oversample is None:
+        oversample = 4
+    q_pad = _round_up(q, q_tile)
+    qp = torch.zeros((q_pad, d_pad), dtype=torch.float32,
+                     device=queries.device)
+    qp[:q, :d] = queries
+
+    nprobe = None
+    if probes_max is not None:
+        if probes is None:
+            raise ValueError("probes_max requires probes")
+        width = min(probes_max, nb)
+        nprobe = min(max(int(probes), 1), width)
+    elif probes is not None:
+        if probes < 1:
+            raise ValueError("probes must be >= 1")
+        if probes < nb:
+            width = nprobe = probes
+    inv = bmap = None
+    if nprobe is not None:
+        if pack.cent is None:
+            raise ValueError(
+                "probes= needs block summaries; this pack was assembled "
+                "without them (re-pack with pack_database)"
+            )
+        order, bmap = _block_map(pack, queries, q_tile=q_tile, probes=width)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(q, device=order.device)
+        qp[:q] = qp[:q][order]
+    acc = bucket_scan(
+        pack.vn, pack.vb, qp.to(torch.bfloat16), m=m, bits=bits, bmap=bmap,
+        nprobe=nprobe, q_tile=q_tile if bmap is not None else None,
+    )
+    # the k_scan best buckets, stable (lower bucket first on equal
+    # scores, as lax.top_k); each carries w = block/m candidate rows
+    k_scan = min(k * oversample, m)
+    vals, pos = torch.sort(acc[:q], dim=1, stable=True)
+    vals, pos = vals[:, :k_scan], pos[:, :k_scan]
+    # the winning block id rides the low mantissa bits of the score
+    blk = (vals.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
+    slices = torch.arange(w, device=pos.device) * m
+    rows = (blk[:, :, None] * block + slices[None, None, :]
+            + pos[:, :, None]).reshape(q, k_scan * w)
+    # pruned mode sorted the queries; undo that on the small row list
+    return rows if inv is None else rows[inv]
+
+
+def _scan_knn_packed_impl(
+    pack: PackedDB,
+    queries,
+    *,
+    k: int,
+    q_tile: int = 256,
+    oversample: int | None = None,
+    probes: int | None = None,
+    probes_max: int | None = None,
+):
+    """Exact-reranked k-NN over a packed database: ``(rows [Q, k],
+    sq_dists [Q, k])``; for ``metric="ip"`` packs the second output is
+    exact dots, highest first. Returned distances are exact f32 for
+    whatever rows come back; -1 / +inf pad."""
+    queries = atleast_2d(as_f32(queries, pack.device))
+    if pack.metric == "cosine":
+        queries = normalize_rows(queries)
+    n = pack.n
+    short_rows = _shortlist_rows(
+        pack, queries, k=k, q_tile=q_tile, oversample=oversample,
+        probes=probes, probes_max=probes_max,
+    )
+    safe = short_rows.clamp(0, n - 1)
+    cand = pack.vectors[safe]  # [Q, S, D]
+    if pack.metric == "ip":
+        key = -torch.sum(cand * queries[:, None, :], dim=-1)
+    else:
+        diff = cand - queries[:, None, :]
+        key = torch.sum(diff * diff, dim=-1)
+    # exclude index pads and +inf sentinel rows (for ip a sentinel
+    # scores -inf/NaN and would win: mask on finiteness)
+    key = torch.where((short_rows < n) & torch.isfinite(key), key,
+                      float("inf"))
+    kk = min(k, short_rows.shape[1])
+    out_key, fpos = torch.sort(key, dim=1, stable=True)
+    out_key, fpos = out_key[:, :kk], fpos[:, :kk]
+    rows = short_rows.gather(1, fpos)
+    rows = torch.where(torch.isfinite(out_key), rows, -1)
+    if k > kk:
+        rows = torch.nn.functional.pad(rows, (0, k - kk), value=-1)
+        out_key = torch.nn.functional.pad(out_key, (0, k - kk),
+                                          value=float("inf"))
+    if pack.metric == "ip":
+        return rows, torch.where(torch.isfinite(out_key), -out_key,
+                                 float("-inf"))
+    return rows, out_key
+
+
+def pallas_scan_knn_packed(
+    pack: PackedDB,
+    queries,
+    *,
+    k: int,
+    q_tile: int = 256,
+    oversample: int | None = None,
+    probes: int | None = None,
+):
+    """k-NN over a packed database (full scan, or pruned with
+    ``probes``); see ``_scan_knn_packed_impl``. ``probes >= num_blocks``
+    (or None) is the full scan."""
+    return _scan_knn_packed_impl(
+        pack, queries, k=k, q_tile=q_tile, oversample=oversample,
+        probes=probes,
+    )
+
+
+def pallas_scan_knn_packed_rt(
+    pack: PackedDB,
+    queries,
+    probes: int,
+    *,
+    k: int,
+    probes_max: int,
+    q_tile: int = 256,
+    oversample: int | None = None,
+):
+    """Runtime-probes pruned serving: like ``pallas_scan_knn_packed(
+    probes=p)`` with ``p`` clipped into ``[1, min(probes_max, nb)]``; the
+    block map is built ``min(probes_max, nb)`` wide and the kernel walks
+    its first ``p`` entries, so results equal the static call's bit for
+    bit."""
+    return _scan_knn_packed_impl(
+        pack, queries, k=k, q_tile=q_tile, oversample=oversample,
+        probes=probes, probes_max=probes_max,
+    )
+
+
+def pallas_scan_knn_candidates(
+    pack: PackedDB,
+    queries,
+    *,
+    k: int,
+    q_tile: int = 256,
+    oversample: int | None = None,
+    probes: int | None = None,
+):
+    """Bucket-shortlist candidate row ids without the rerank:
+    ``[Q, k_scan * block/m]``, possibly including ids >= ``pack.n`` and
+    sentinel rows (the caller's rerank must mask both)."""
+    queries = atleast_2d(as_f32(queries, pack.device))
+    if pack.metric == "cosine":
+        queries = normalize_rows(queries)
+    return _shortlist_rows(
+        pack, queries, k=k, q_tile=q_tile, oversample=oversample,
+        probes=probes,
+    )
+
+
+def calibrate_probes(
+    pack: PackedDB,
+    sample_queries,
+    k: int,
+    target_recall: float = 0.95,
+    *,
+    q_tile: int = 256,
+    oversample: int | None = None,
+    probes_max: int | None = None,
+) -> int:
+    """Smallest ``probes`` whose recall@k on ``sample_queries`` (against
+    this pack's own full scan) meets ``target_recall``: a binary search
+    over the block count through the runtime-probes path. ``probes_max``
+    caps the search; if even the cap misses the target, the cap is
+    returned."""
+    q = atleast_2d(as_f32(sample_queries, pack.device))
+    nb = pack.vb.shape[0]
+    if nb <= 1 or target_recall <= 0:
+        return nb
+    pmax = nb if probes_max is None else min(probes_max, nb)
+    full, _ = pallas_scan_knn_packed(
+        pack, q, k=k, q_tile=q_tile, oversample=oversample
+    )
+    want = [set(r) - {-1} for r in full.cpu().tolist()]
+    denom = max(1, sum(len(w) for w in want))
+    seen: dict[int, float] = {}
+
+    def recall_at(p: int) -> float:
+        if p not in seen:
+            rows, _ = pallas_scan_knn_packed_rt(
+                pack, q, p, k=k, probes_max=pmax, q_tile=q_tile,
+                oversample=oversample,
+            )
+            hits = sum(len(set(r) & w)
+                       for r, w in zip(rows.cpu().tolist(), want))
+            seen[p] = hits / denom
+        return seen[p]
+
+    lo, hi = 1, pmax  # recall_at(nb) == 1.0 by construction
+    if pmax < nb and recall_at(pmax) < target_recall:
+        return pmax
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if recall_at(mid) >= target_recall:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def pallas_scan_knn(
+    vectors,
+    queries,
+    *,
+    k: int,
+    block: int | None = None,
+    q_tile: int = 256,
+    buckets: int = 4096,
+    oversample: int | None = None,
+    probes: int | None = None,
+    dtype: str = "bfloat16",
+    metric: str = "l2",
+    device=None,
+):
+    """One-shot convenience: pack + serve. For steady-state serving call
+    ``pack_database`` once and ``pallas_scan_knn_packed`` per batch."""
+    pack = pack_database(
+        vectors, block=block, buckets=buckets, dtype=dtype, metric=metric,
+        device=device,
+    )
+    return pallas_scan_knn_packed(
+        pack, queries, k=k, q_tile=q_tile, oversample=oversample,
+        probes=probes,
+    )

@@ -1,0 +1,241 @@
+"""Sorted-segment fused build (port of
+``vector_database_tpu/ops/sorted_build.py``).
+
+One invariant carries the build: **rows are stored segment-contiguous at
+every level.** Per-segment sums and sums of squares are prefix-sum
+differences at segment boundaries; retired (leaf) ranges stop being
+referenced and keep their position, so the final layout is leaf-major
+with no finalize sort; the per-level stable partition moves rows only
+within their parent range, with destinations from one running count of
+lows.
+
+Differences from the JAX program, none of which changes a result:
+
+- the level loop is a host ``while`` over levels with one ``.item()``
+  sync per level (the live segment count), so per-segment arrays are
+  sized to the live count instead of a static capacity and each level's
+  node block is appended rather than window-written;
+- the card scatters cheaply, so the permutation is inverted with one
+  scatter ``src[dest] = pos`` where the TPU program sorted
+  (``lax.sort_key_val``), and the optimization barriers that sequenced
+  the TPU's prefix transients are gone;
+- the split value is a column gather, where the TPU program summed a
+  one-hot mask (the same value for finite rows).
+
+Ties: ``tie_break="positional"`` halves rows on the plane (and whole
+zero-variance segments) by rank inside the segment. The reference-parity
+``"mean_id"`` rule is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# dimensions per prefix-scan pass: bounds the [chunk, N/k] transients
+_D_CHUNK = 128
+
+
+def segment_capacity(n: int, leaf_size: int) -> int:
+    """Bound on live segments in any level: children of internal ranges
+    only, and an internal range holds at least ``leaf_size + 1`` points."""
+    return max(2, 2 * (n // (leaf_size + 1)))
+
+
+def sorted_build(
+    vectors: torch.Tensor,  # [N, D] float32
+    row_ids: torch.Tensor,  # [N] original row of each position
+    n_valid: int,  # leading rows that are real (<= N)
+    *,
+    s_max: int,
+    m_max: int,
+    leaf_size: int,
+    max_levels: int,
+    stats_subsample: int = 1,
+    tie_break: str = "positional",
+    progress_cb=None,
+    split: str = "alternate",
+):
+    """Run the level-synchronous build.
+
+    Returns ``(dim, mid, low, high, leaf_start, leaf_count, perm_rows,
+    sorted_vectors, total_nodes, depth)``: node arrays of ``total_nodes``
+    entries, ``sorted_vectors`` in leaf-major order and ``perm_rows[i]``
+    the original row stored at position ``i``. ``s_max`` and ``m_max``
+    bound the live segments and nodes (checked, not used for sizing).
+    """
+    if tie_break != "positional":
+        raise NotImplementedError(
+            "tie_break='mean_id' is not ported yet; use 'positional'"
+        )
+    n, d = vectors.shape
+    dev = vectors.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    pos = torch.arange(n, **i64)
+
+    pvec = vectors
+    pid = row_ids.to(torch.int64)
+    pseg = torch.where(pos < n_valid, 0, -1)
+    pleaf = torch.full((n,), -1, **i64)
+    seg_start = torch.zeros(1, **i64)
+    seg_cnt = torch.full((1,), n_valid, **i64)
+    blocks = []  # per level: (dim, mid, low, high, leaf_start, leaf_count)
+    node_base, s_live, use_max, level = 0, 1, True, 0
+
+    def at(prefix, idx):
+        """Exclusive prefix ``prefix[..., idx - 1]`` (0 at idx == 0)."""
+        v = prefix[..., torch.clamp(idx - 1, 0, prefix.shape[-1] - 1)]
+        return torch.where(idx > 0, v, torch.zeros((), dtype=v.dtype,
+                                                   device=dev))
+
+    while s_live > 0 and level < max_levels:
+        if s_live > s_max or node_base + s_live > m_max:
+            raise RuntimeError("segment capacity exceeded")
+        active = pseg >= 0
+        ps = torch.where(active, pseg, 0)
+        ends = seg_start + seg_cnt
+        g_cnt = seg_cnt
+        if progress_cb is not None:
+            progress_cb(level, s_live, int(g_cnt.sum()))
+
+        # --- phase 1: split dimension from (optionally subsampled)
+        # segment moments via prefix-sum differences. Subsampling (every
+        # k-th row) only ranks dimensions; the plane itself is exact.
+        k = stats_subsample
+        xs = pvec[::k]
+        n_before = lambda idx: (idx + (k - 1)) // k  # samples before idx
+        s_lo, s_hi = n_before(seg_start), n_before(ends)
+        sums_c, sumsq_c = [], []
+        for c0 in range(0, d, _D_CHUNK):
+            # scan along the last dim: [chunk, ns] rows scan in parallel
+            xc = xs[:, c0 : c0 + _D_CHUNK].T.contiguous()
+            pre = torch.cumsum(xc, dim=1)
+            sums_c.append(at(pre, s_hi) - at(pre, s_lo))
+            pre = torch.cumsum(xc * xc, dim=1)
+            sumsq_c.append(at(pre, s_hi) - at(pre, s_lo))
+            del pre, xc
+        sums = torch.cat(sums_c, dim=0).T  # [S, D]
+        sumsq = torch.cat(sumsq_c, dim=0).T
+
+        cnt_f = torch.clamp(g_cnt, min=1).to(torch.float32)
+        cnt_sub = s_hi - s_lo
+        cnt_sub_f = torch.clamp(cnt_sub, min=1).to(torch.float32)
+        mean_sub = sums / cnt_sub_f[:, None]
+        # XLA evaluates ``sumsq - (cnt * mean) * mean`` as one fused
+        # multiply-subtract (a single rounding); the f64 product of two
+        # f32 values is exact, so this rounds the same way and dimension
+        # ranking ties break as in the JAX build
+        cm = (cnt_sub_f[:, None] * mean_sub).double()
+        m2 = torch.clamp(
+            (sumsq.double() - cm * mean_sub.double()).float(), min=0.0
+        )
+
+        # alternating max/min variance by level parity; first on ties
+        split_dim = (torch.argmax(m2, dim=1) if use_max
+                     else torch.argmin(m2, dim=1))
+        degenerate = (m2.gather(1, split_dim[:, None])[:, 0] == 0.0) | (
+            cnt_sub == 0
+        )
+        is_int = (g_cnt > leaf_size) & (level < max_levels - 1)
+
+        p_dim = split_dim[ps]
+        p_start = seg_start[ps]
+        p_gcnt = g_cnt[ps]
+
+        # --- phase 2: per-row split value and the exact split plane (one
+        # [N] cumsum of the chosen column)
+        value = pvec.gather(1, p_dim[:, None])[:, 0]
+        vc = torch.cumsum(torch.where(active, value, 0.0), dim=0)
+        mid = (at(vc, ends) - at(vc, seg_start)) / cnt_f
+        p_mid = mid[ps]
+
+        local_rank = pos - p_start
+        # positional ties: lows get the first ceil(cnt/2) ranks
+        tie_high = 2 * local_rank >= p_gcnt + (p_gcnt & 1)
+        normal_high = (value > p_mid) | ((value == p_mid) & tie_high)
+
+        is_low_n = active & ~normal_high
+        cl = torch.cumsum(is_low_n.to(torch.int64), dim=0)
+        cl_lo = at(cl, seg_start)
+        lo_cnt = at(cl, ends) - cl_lo
+        # zero-progress guard (fp edge: every row on one side) -> forced
+        # rank partition, like a degenerate segment
+        stuck = is_int & ((lo_cnt == 0) | (lo_cnt == g_cnt))
+        degen_split = degenerate | stuck
+        half = (g_cnt + 1) // 2
+        lo_cnt = torch.where(degen_split, half, lo_cnt)
+
+        # --- child numbering and boundaries
+        ii = is_int.to(torch.int64)
+        rank = torch.cumsum(ii, dim=0) - ii
+        num_internal = int(ii.sum())  # the level's one host sync
+        next_base = node_base + s_live
+        # children of internal segment r land at 2r, 2r+1; leaves write
+        # into a dropped slot past the end
+        tgt = torch.where(is_int, 2 * rank, 2 * num_internal)
+        new_start = torch.zeros(2 * num_internal + 2, **i64)
+        new_cnt = torch.zeros(2 * num_internal + 2, **i64)
+        new_start[tgt] = seg_start
+        new_start[tgt + 1] = seg_start + lo_cnt
+        new_cnt[tgt] = lo_cnt
+        new_cnt[tgt + 1] = seg_cnt - lo_cnt
+        new_start = new_start[: 2 * num_internal]
+        new_cnt = new_cnt[: 2 * num_internal]
+
+        # --- this level's node block. Tie-partitioned nodes store dim -2:
+        # no plane separates their children, the search descends both.
+        node_dim = torch.where(degen_split, -2, split_dim)
+        blocks.append((
+            torch.where(is_int, node_dim, -1),
+            torch.where(is_int & ~degen_split, mid, 0.0),
+            torch.where(is_int, next_base + 2 * rank, -1),
+            torch.where(is_int, next_base + 2 * rank + 1, -1),
+            # leaves record their (start, count): rows never move again
+            torch.where(is_int, 0, seg_start),
+            torch.where(is_int, 0, seg_cnt),
+        ))
+
+        # --- phase 3: stable within-range partition (rank splits move
+        # no rows)
+        p_locnt = lo_cnt[ps]
+        p_degen = degen_split[ps]
+        p_is_int = is_int[ps]
+        p_rank = rank[ps]
+        p_cls = cl_lo[ps]
+        go_high = torch.where(p_degen, tie_high, normal_high)
+        moving = active & p_is_int & ~p_degen
+        lows_upto = cl - p_cls  # inclusive lows in [start, i]
+        dest_low = p_start + lows_upto - 1
+        dest_high = p_start + p_locnt + local_rank - lows_upto
+        dest = torch.where(moving, torch.where(go_high, dest_high, dest_low),
+                           pos)
+        src = torch.empty_like(pos)
+        src[dest] = pos  # invert the (unique-index) permutation
+
+        new_seg = torch.where(active & p_is_int,
+                              2 * p_rank + go_high.to(torch.int64), -1)
+        new_leaf = torch.where(active & ~p_is_int, node_base + ps, pleaf)
+        pvec = pvec[src]
+        pid, pseg, pleaf = pid[src], new_seg[src], new_leaf[src]
+        seg_start, seg_cnt = new_start, new_cnt
+
+        node_base = next_base
+        s_live = 2 * num_internal
+        # "alternate": the reference's max/min parity rule; "max":
+        # max-variance every level
+        use_max = use_max if split == "max" else not use_max
+        level += 1
+
+    if s_live > 0:
+        # depth-cap exit: still-live segments retire as oversized leaves
+        blocks.append((
+            torch.full((s_live,), -1, **i64),
+            torch.zeros(s_live, dtype=torch.float32, device=dev),
+            torch.full((s_live,), -1, **i64),
+            torch.full((s_live,), -1, **i64),
+            seg_start,
+            seg_cnt,
+        ))
+    nd, nm, nl, nh, nls, nlc = (torch.cat(col) for col in zip(*blocks))
+    i32 = torch.int32
+    return (nd.to(i32), nm, nl.to(i32), nh.to(i32), nls.to(i32),
+            nlc.to(i32), pid.to(i32), pvec, node_base + s_live, level)
