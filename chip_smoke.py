@@ -5,7 +5,8 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the CUDA kernel from ``vector_database_tpu_torch/csrc``;
+1. build the three CUDA kernels from ``vector_database_tpu_torch/csrc``,
+   one ``nvcc`` each, all at once;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
@@ -17,7 +18,18 @@ Phases (each raises on failure; nothing is caught):
    (full and pruned), with the two bitwise equalities of the pruned
    path (probes = nb equals the full scan; runtime probes equal static);
 5. exact radius ``search``/``knn`` through the tree at 1M x 8 against
-   the oracle.
+   the oracle;
+6. the int8 and int8f packs of the same 10M x 96 leaf-major matrix: pack
+   time, block bytes (half the bf16 pack's) and scale; ``PackedServer``
+   full scans over both (recall@10 >= 0.90) and pruned int8f scans at
+   probes 192/256/320; the exact int8 kernel bitwise equal to its plain
+   version, the int8f route (full, and pruned to 256 blocks) within the
+   bf16 tolerance, and the pruned int8f equalities of phase 4; both
+   launch counts must rise;
+7. the A/B scan probe: each mode bitwise equal to its plain version on
+   small integers at 3 blocks, then its entry point times the four modes
+   at 10M rows and 1024 queries (its JSON lines), and ``full`` is held
+   bitwise to its plain version at that size, on small integers.
 
 It prints the card's name and power limit, one JSON line of kernel
 results, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -122,8 +134,14 @@ def main():
         pallas_scan_knn_packed_rt,
         search,
     )
+    from vector_database_tpu_torch.benchmarks import probe_kernel_ab as pab
     from vector_database_tpu_torch.ops import bucket_scan as bs
-    from vector_database_tpu_torch.ops.packed_knn import _block_map
+    from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
+    from vector_database_tpu_torch.ops import cuda_build
+    from vector_database_tpu_torch.ops.packed_knn import (
+        _block_map,
+        _scan_queries,
+    )
     from vector_database_tpu_torch.search import calibrate_radius
 
     dev = torch.device(DEVICE)
@@ -138,9 +156,11 @@ def main():
 
     # ---- 1. build -----------------------------------------------------
     t0 = time.perf_counter()
-    bs._load()
-    print(f"[build] bucket_scan.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+    cuda_build.build("bucket_scan", "bucket_scan_i8", "probe_kernel_ab")
+    for mod in (bs, bi, pab):
+        mod._load()
+    print(f"[build] bucket_scan.cu, bucket_scan_i8.cu, probe_kernel_ab.cu "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 2. exactness where the scan is exact (n <= buckets) ------------
     g = torch.Generator(device=dev).manual_seed(42)
@@ -260,7 +280,7 @@ def main():
         raise AssertionError("runtime probes != static probes")
     print("[kernel] probes=nb == full scan (bitwise); runtime probes 256 "
           "== static probes 256 (bitwise)")
-    del pack, index, acc_k, acc_p, pk, pp, acc_all
+    del acc_k, acc_p, pk, pp, acc_all
 
     # ---- 5. exact radius search through the tree -----------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -288,6 +308,166 @@ def main():
           f"({int(res.count.sum())} matches); knn == exact_knn on "
           f"{int(full_rows.sum())} full rows")
 
+    # ---- 6. int8 and int8f packs at full width -------------------------
+    bf16_bytes = pack.vb.numel() * pack.vb.element_size()
+    bs.bucket_scan.LAUNCHES = bs.bucket_scan.LAUNCHES_INT8F = 0
+    bi.bucket_scan_i8.LAUNCHES = 0
+    packs = {}
+    for dtype in ("int8", "int8f"):
+        t0 = time.perf_counter()
+        p8 = pack_database(index.vectors, buckets=BUCKETS, dtype=dtype)
+        torch.cuda.synchronize()
+        p8_s = time.perf_counter() - t0
+        vb_bytes = p8.vb.numel() * p8.vb.element_size()
+        if 2 * vb_bytes != bf16_bytes:
+            raise AssertionError(f"{dtype} blocks take {vb_bytes} bytes, "
+                                 f"not half of bf16's {bf16_bytes}")
+        srv = PackedServer(p8, k=K, batch=Q)
+        srv.warmup()
+        ms = _ms(lambda: srv.query(test), REPS)
+        rec = _recall(srv.query(test)[0][:TRUTH_Q], truth)
+        results[f"{dtype}_full"] = dict(ms=ms, qps=Q / ms * 1e3, recall=rec,
+                                        pack_s=p8_s)
+        print(f"[int8] {dtype} pack: {p8_s:.3f} s, vb {vb_bytes} bytes "
+              f"(bf16 {bf16_bytes}), sq {p8.sq!r}; full scan q={Q}: "
+              f"{ms:.3f} ms, {Q / ms * 1e3:.1f} QPS, recall@{K} {rec:.4f}")
+        if rec < 0.90:
+            raise AssertionError(f"{dtype} full-scan recall@{K} {rec} < 0.9")
+        packs[dtype] = p8
+    p8f = packs["int8f"]
+    pruned8 = PackedServer(p8f, k=K, batch=Q, probes=PROBES[0],
+                           probes_max=max(PROBES))
+    pruned8.warmup()
+    for p in PROBES:
+        pruned8.set_probes(p)
+        ms = _ms(lambda: pruned8.query(test), REPS)
+        rec = _recall(pruned8.query(test)[0][:TRUTH_Q], truth)
+        results[f"int8f_probes{p}"] = dict(ms=ms, qps=Q / ms * 1e3,
+                                           recall=rec)
+        print(f"[int8] int8f pruned probes={p}: {ms:.3f} ms, "
+              f"{Q / ms * 1e3:.1f} QPS, recall@{K} {rec:.4f}")
+    torch.cuda.synchronize()
+    i8_launches = bi.bucket_scan_i8.LAUNCHES
+    i8f_launches = bs.bucket_scan.LAUNCHES_INT8F
+    if i8_launches < 1 or i8f_launches < 1:
+        raise AssertionError(f"int8 path launches: i8 {i8_launches}, "
+                             f"int8f {i8f_launches}")
+    print(f"[int8] launches on the int8 paths: bucket_scan_i8 "
+          f"{i8_launches}, bucket_scan int8f {i8f_launches}, bf16 "
+          f"{bs.bucket_scan.LAUNCHES}")
+
+    qp = torch.zeros((Q, d_pad), device=dev)
+    qp[:, :D] = test
+    p8 = packs["int8"]
+    qi = _scan_queries(p8, qp)
+    sk, ik = bi.bucket_scan_i8(p8.vn, p8.vb, qi, m=p8.m)
+    sp, ip = bi.bucket_scan_i8_reference(p8.vn, p8.vb, qi, m=p8.m)
+    i8_err = float((sk - sp).abs().max())
+    if not (torch.equal(sk, sp) and torch.equal(ik, ip)):
+        raise AssertionError(f"i8 kernel != plain: max |score err| {i8_err},"
+                             f" {int((ik != ip).sum())} block ids differ")
+    i8_ms = _ms(lambda: bi.bucket_scan_i8(p8.vn, p8.vb, qi, m=p8.m), REPS)
+    i8_plain_ms = _ms(lambda: bi.bucket_scan_i8_reference(
+        p8.vn, p8.vb, qi, m=p8.m), REPS)
+    print(f"[int8] i8 kernel {Q}x{nb} blocks: kernel {i8_ms:.3f} ms, plain "
+          f"{i8_plain_ms:.3f} ms, scores and block ids bitwise equal")
+    del sk, ik, sp, ip
+
+    qf = _scan_queries(p8f, qp)
+    args8 = dict(m=p8f.m, bits=p8f.bits)
+    acc_k = bs.bucket_scan(p8f.vn, p8f.vb, qf, **args8)
+    acc_p = bs.bucket_scan_reference(p8f.vn, p8f.vb, qf, **args8)
+    i8f_err, i8f_mis = _compare_acc(acc_k, acc_p, p8f, qf)
+    i8f_ms = _ms(lambda: bs.bucket_scan(p8f.vn, p8f.vb, qf, **args8), REPS)
+    i8f_plain_ms = _ms(lambda: bs.bucket_scan_reference(
+        p8f.vn, p8f.vb, qf, **args8), REPS)
+    print(f"[int8] int8f kernel {Q}x{nb} blocks: kernel {i8f_ms:.3f} ms, "
+          f"plain {i8f_plain_ms:.3f} ms, max |score err| {i8f_err:.3g}, "
+          f"block-id ties {i8f_mis:.2e}")
+    order, bmap8 = _block_map(p8f, test, q_tile=q_tile, probes=max(PROBES))
+    qfs = qf[order]
+    pargs8 = dict(args8, bmap=bmap8, nprobe=min(256, nb), q_tile=q_tile)
+    pk = bs.bucket_scan(p8f.vn, p8f.vb, qfs, **pargs8)
+    pp = bs.bucket_scan_reference(p8f.vn, p8f.vb, qfs, **pargs8)
+    i8p_err, i8p_mis = _compare_acc(pk, pp, p8f, qfs)
+    i8p_ms = _ms(lambda: bs.bucket_scan(p8f.vn, p8f.vb, qfs, **pargs8), REPS)
+    i8p_plain_ms = _ms(lambda: bs.bucket_scan_reference(
+        p8f.vn, p8f.vb, qfs, **pargs8), REPS)
+    print(f"[int8] int8f pruned 256 of {nb} blocks: kernel {i8p_ms:.3f} ms, "
+          f"plain {i8p_plain_ms:.3f} ms, max |score err| {i8p_err:.3g}, "
+          f"block-id ties {i8p_mis:.2e}")
+    _, all_map = _block_map(p8f, test, q_tile=q_tile, probes=nb)
+    acc_all = bs.bucket_scan(p8f.vn, p8f.vb, qfs, **dict(
+        args8, bmap=all_map, nprobe=nb, q_tile=q_tile))
+    if not torch.equal(acc_all, bs.bucket_scan(p8f.vn, p8f.vb, qfs,
+                                               **args8)):
+        raise AssertionError("int8f probes = nb accumulator != full scan")
+    sr, sd = pallas_scan_knn_packed(p8f, test, k=K, q_tile=q_tile,
+                                    probes=256)
+    rr, rd = pallas_scan_knn_packed_rt(p8f, test, 256, k=K,
+                                       probes_max=max(PROBES),
+                                       q_tile=q_tile)
+    if not (torch.equal(sr, rr) and torch.equal(sd, rd)):
+        raise AssertionError("int8f runtime probes != static probes")
+    print("[int8] int8f probes=nb == full scan (bitwise); runtime probes "
+          "256 == static probes 256 (bitwise)")
+    del full, pruned, srv, pruned8, pack, packs, p8, p8f, index
+    del acc_k, acc_p, acc_all, pk, pp
+
+    # ---- 7. the A/B scan probe -------------------------------------------
+    w_ab = pab.BLOCK // pab.M
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    small = dict(generator=g, device=dev)
+    vb3 = torch.randint(-2, 3, (3, pab.D_PAD, pab.BLOCK), **small).bfloat16()
+    vn3 = torch.randint(0, 9, (3, 1, pab.BLOCK), **small).float()
+    q3 = torch.randint(-2, 3, (256, pab.D_PAD), **small).bfloat16()
+    qn3 = torch.randint(0, 9, (256, 1), **small).float()
+    args3 = dict(m=pab.M, bits=pab.id_bits(3, w_ab))
+    for mode in pab.MODES:
+        if not torch.equal(
+                pab.probe_kernel_ab(mode, vn3, vb3, q3, qn3, **args3),
+                pab.probe_kernel_ab_reference(mode, vn3, vb3, q3, qn3,
+                                              **args3)):
+            raise AssertionError(f"A/B probe {mode} kernel != plain")
+    print(f"[probe] {', '.join(pab.MODES)}: kernel == plain (bitwise) on "
+          "small integers, 3 blocks")
+    del vb3, vn3, q3, qn3
+    pab.probe_kernel_ab.LAUNCHES = 0
+    ab = pab.run(N)
+    torch.cuda.synchronize()
+    ab_launches = pab.probe_kernel_ab.LAUNCHES
+    if ab_launches < len(pab.MODES):
+        raise AssertionError(f"the probe launched its kernel {ab_launches} "
+                             "times")
+    for r in ab:
+        print(json.dumps(r))
+    print(f"[probe] launches from its entry point: {ab_launches}")
+    # kernel vs plain at the probe's full size, on small integers: the
+    # probe takes an int32 min of float bits, so a score whose sign
+    # differs between two summation orders picks another candidate, and
+    # no float tolerance holds; with exact sums the two must agree bitwise
+    nb_ab = -(-N // pab.BLOCK)
+    vb_ab = torch.randint(-2, 3, (nb_ab, pab.D_PAD, pab.BLOCK),
+                          dtype=torch.int8, **small).bfloat16()
+    vn_ab = torch.randint(0, 9, (nb_ab, 1, pab.BLOCK), **small).float()
+    q_ab = torch.randint(-2, 3, (pab.Q, pab.D_PAD), **small).bfloat16()
+    qn_ab = torch.randint(0, 9, (pab.Q, 1), **small).float()
+    ab_args = dict(m=pab.M, bits=pab.id_bits(nb_ab, w_ab))
+    ab_k = pab.probe_kernel_ab("full", vn_ab, vb_ab, q_ab, qn_ab, **ab_args)
+    ab_p = pab.probe_kernel_ab_reference("full", vn_ab, vb_ab, q_ab, qn_ab,
+                                         **ab_args)
+    ab_err = float((ab_k.double() - ab_p.double()).abs().max())
+    if not torch.equal(ab_k, ab_p):
+        raise AssertionError(f"A/B probe full kernel != plain at {N} rows")
+    ab_ms = _ms(lambda: pab.probe_kernel_ab("full", vn_ab, vb_ab, q_ab,
+                                            qn_ab, **ab_args), REPS)
+    ab_plain_ms = _ms(lambda: pab.probe_kernel_ab_reference(
+        "full", vn_ab, vb_ab, q_ab, qn_ab, **ab_args), 1)
+    print(f"[probe] full at {N} rows, {pab.Q} queries, small integers: "
+          f"kernel {ab_ms:.3f} ms, plain {ab_plain_ms:.3f} ms, bitwise "
+          "equal")
+    del vn_ab, vb_ab, q_ab, qn_ab, ab_k, ab_p
+
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
         pack_s=pack_s, **{f"{key}_{f}": val
@@ -308,6 +488,32 @@ def main():
         "pruned256_ms": pk_ms,
         "pruned256_plain_ms": pp_ms,
         "pruned256_max_abs_err": pr_err,
+        "int8f_launches": i8f_launches,
+        "int8f_max_abs_err": i8f_err,
+        "int8f_ms": i8f_ms,
+        "int8f_plain_ms": i8f_plain_ms,
+        "int8f_pruned256_ms": i8p_ms,
+        "int8f_pruned256_plain_ms": i8p_plain_ms,
+        "int8f_pruned256_max_abs_err": i8p_err,
+    }, {
+        "name": "bucket_scan_i8",
+        "route": "cuda",
+        "source": "vector_database_tpu_torch/csrc/bucket_scan_i8.cu",
+        "replaces": "vector_database_tpu/ops/pallas_knn.py:344",
+        "launches": i8_launches,
+        "max_abs_err": i8_err,
+        "ms": i8_ms,
+        "plain_ms": i8_plain_ms,
+    }, {
+        "name": "probe_kernel_ab",
+        "route": "cuda",
+        "source": "vector_database_tpu_torch/csrc/probe_kernel_ab.cu",
+        "replaces": "benchmarks/probe_kernel_ab.py:26",
+        "launches": ab_launches,
+        "max_abs_err": ab_err,
+        "ms": ab_ms,
+        "plain_ms": ab_plain_ms,
+        "modes_ms": {r["mode"]: r["ms_per_1024q"] for r in ab},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

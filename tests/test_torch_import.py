@@ -21,6 +21,8 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch",
     "vector_database_tpu_torch.ops.bucket_scan",
     "vector_database_tpu_torch.ops.packed_knn",
+    "vector_database_tpu_torch.ops.bucket_scan_i8",
+    "vector_database_tpu_torch.benchmarks.probe_kernel_ab",
 ])
 def test_import_leaves_jax_out(module):
     code = (

@@ -84,6 +84,20 @@ def test_set_probes_with_runtime_probes(pack_and_queries):
         srv.set_probes(7)
 
 
+def test_from_vectors_splits_serve_keywords(pack_and_queries):
+    pack, qs = pack_and_queries
+    vecs, _ = _clustered(3)
+    srv = PackedServer.from_vectors(vecs, k=5, batch=32, block=512,
+                                    buckets=128, q_tile=16, probes=2,
+                                    probes_max=4, min_probe_batch=32)
+    assert srv._pack.block == 512 and srv._pack.m == 128
+    want = PackedServer(pack, k=5, batch=32, q_tile=16, probes=2,
+                        probes_max=4, min_probe_batch=32)
+    assert torch.equal(srv.query(qs[:40])[0], want.query(qs[:40])[0])
+    with pytest.raises(TypeError):
+        PackedServer.from_vectors(vecs, k=5, bogus=1)
+
+
 def test_server_defaults_match_jax(pack_and_queries):
     pack, qs = pack_and_queries
     for batch in (1, 20, 4096):

@@ -1,24 +1,27 @@
 """vector_database_tpu_torch: the vector index engine on PyTorch and CUDA.
 
-A port of ``vector_database_tpu`` (JAX, TPU) to PyTorch, with the serving
+A port of ``vector_database_tpu`` (JAX, TPU) to PyTorch, with every
 kernel written by hand in CUDA C++ for NVIDIA Hopper (``csrc/``). Public
 names and signatures follow the JAX package, so a caller or a test finds
 each counterpart by name. This package never imports JAX.
 
-The ported slice is the main path:
+The ported slices are the main path and the int8 capacity path:
 
 - ``build_index_fused``: the level-synchronous variance-split BSP build,
   which yields the leaf-major matrix (``builder.py``,
   ``ops/sorted_build.py``);
-- ``pack_database`` and the bucketed scan, full or pruned by block
-  probes, with an exact f32 rerank (``ops/packed_knn.py`` over the CUDA
-  kernel in ``ops/bucket_scan.py``), behind ``PackedServer``
-  (``serving.py``);
+- ``pack_database`` (bf16, int8 and int8f blocks) and the bucketed scan,
+  full or pruned by block probes, with an exact f32 rerank
+  (``ops/packed_knn.py`` over the CUDA kernels in ``ops/bucket_scan.py``
+  and, for pure-int8 packs, the exact integer scan in
+  ``ops/bucket_scan_i8.py``), behind ``PackedServer`` (``serving.py``);
 - the exact oracle (``ops/exact.py``) and the exact radius ``search`` /
-  ``knn`` through the tree (``search.py``).
+  ``knn`` through the tree (``search.py``);
+- the A/B probe of the scan's time split
+  (``benchmarks/probe_kernel_ab.py``, its own CUDA kernel).
 
 Tensors stay on the device they are given (or the ``device=`` argument);
-on CPU tensors the kernel's plain torch version runs instead.
+on CPU tensors each kernel's plain torch version runs instead.
 """
 
 from vector_database_tpu_torch.builder import build_index_fused

@@ -1,84 +1,44 @@
-"""The bucketed scan kernel: loader, wrapper, plain version, launch count.
+"""The bucketed scan kernel: wrapper, plain version, launch counts.
 
-``bucket_scan`` computes what the three bf16 Pallas kernels of
+``bucket_scan`` computes what the three float-scoring Pallas kernels of
 ``vector_database_tpu/ops/pallas_knn.py`` compute (``_kernel`` :130,
 ``_kernel_pruned`` :203, ``_kernel_pruned_rt`` :274): for every query row
 and bucket ``c < m`` the minimum over the streamed blocks of
 ``enc(min_j(vn[b, j*m+c] + q . vb[b, :, j*m+c]), b)``, where ``enc``
-replaces the score's low ``bits`` bits with the block id. The CUDA source
-is ``csrc/bucket_scan.cu``; its header says what bounds it on an H100.
+replaces the score's low ``bits`` bits with the block id. ``vb`` is bf16
+(bf16 packs) or int8 (int8f packs, widened to bf16 in the kernel). The
+CUDA source is ``csrc/bucket_scan.cu``; its header says what bounds it on
+an H100.
 
 On a CUDA tensor the wrapper launches the kernel (building it with
 ``nvcc`` at first use) or raises. On a CPU tensor it runs
 ``bucket_scan_reference``, the plain torch loop with the same arguments.
+``bucket_scan.LAUNCHES`` counts the kernel's launches on bf16 blocks,
+``bucket_scan.LAUNCHES_INT8F`` those on int8 blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "bucket_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
-    "vector_database_tpu_torch"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from vector_database_tpu_torch.ops import cuda_build
+
 _MT = 128  # the kernel's bucket columns per CTA
-_SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may claim
-_lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = Path("/usr/local/cuda/bin/nvcc")
-    if fallback.exists():
-        return str(fallback)
-    raise RuntimeError(
-        "nvcc not found on PATH or in /usr/local/cuda/bin: the CUDA "
-        "toolkit is needed to build csrc/bucket_scan.cu"
+def _declare(lib):
+    lib.bucket_scan_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     )
-
-
-def build() -> Path:
-    """Compile ``csrc/bucket_scan.cu`` into a shared library (once per
-    source hash) and return its path."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"bucket_scan_{key[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)], check=True
-    )
-    # atomic: a concurrent process never loads a partly written file
-    os.replace(tmp, out)
-    return out
+    lib.bucket_scan_launch.restype = ctypes.c_int
+    lib.bucket_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.bucket_scan_smem_bytes.restype = ctypes.c_size_t
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.bucket_scan_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        )
-        lib.bucket_scan_launch.restype = ctypes.c_int
-        lib.bucket_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.bucket_scan_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+    return cuda_build.load("bucket_scan", _declare)
 
 
 def _check(vn, vb, q, m, bmap, nprobe, q_tile):
@@ -89,9 +49,9 @@ def _check(vn, vb, q, m, bmap, nprobe, q_tile):
             f"{tuple(vb.shape)} and {tuple(vn.shape)}"
         )
     nb, d_pad, block = vb.shape
-    if vb.dtype != torch.bfloat16 or vn.dtype != torch.float32 or \
-            q.dtype != torch.bfloat16:
-        raise TypeError("bucket_scan takes bf16 vb and q, f32 vn")
+    if vb.dtype not in (torch.bfloat16, torch.int8) or \
+            vn.dtype != torch.float32 or q.dtype != torch.bfloat16:
+        raise TypeError("bucket_scan takes bf16 or int8 vb, bf16 q, f32 vn")
     if q.dim() != 2 or q.shape[1] != d_pad:
         raise ValueError(f"q must be [q_pad, {d_pad}]; got {tuple(q.shape)}")
     if block % m:
@@ -137,21 +97,6 @@ def bucket_scan_reference(vn, vb, q, *, m, bits, bmap=None, nprobe=None,
     return acc
 
 
-def _pick_qt(rows: int, d_pad: int) -> int:
-    """The kernel's query tile: the largest of 64/32/16/8 rows dividing
-    ``rows`` (q_pad, or q_tile for a pruned scan) whose shared-memory plan
-    fits one block."""
-    lib = _load()
-    for qt in (64, 32, 16, 8):
-        if rows % qt == 0 and lib.bucket_scan_smem_bytes(qt, d_pad) <= \
-                _SMEM_LIMIT:
-            return qt
-    raise ValueError(
-        f"no kernel query tile divides {rows} rows with d_pad={d_pad} in "
-        "shared memory (rows must be a multiple of 8)"
-    )
-
-
 def bucket_scan(vn, vb, q, *, m, bits, bmap=None, nprobe=None, q_tile=None):
     """The bucketed scan: ``[q_pad, m]`` f32 accumulator, block ids in the
     low ``bits`` mantissa bits. Arguments as ``bucket_scan_reference``."""
@@ -175,19 +120,29 @@ def bucket_scan(vn, vb, q, *, m, bits, bmap=None, nprobe=None, q_tile=None):
             f"d_pad={d_pad}, m={m}"
         )
     q_pad = q.shape[0]
-    qt = _pick_qt(q_pad if bmap is None else q_tile, d_pad)
+    vb_i8 = vb.dtype == torch.int8
+    # the kernel's query tile divides q_pad, or q_tile for a pruned scan
+    qt = cuda_build.pick_qt(
+        q_pad if bmap is None else q_tile,
+        lambda qt: _load().bucket_scan_smem_bytes(qt, d_pad, vb_i8),
+    )
     out = torch.empty((q_pad, m), dtype=torch.float32, device=q.device)
     err = _load().bucket_scan_launch(
         vn.data_ptr(), vb.data_ptr(), q.data_ptr(),
         None if bmap is None else bmap.data_ptr(), out.data_ptr(),
         nb, d_pad, block, m, bits, q_pad, qt,
         q_tile or q_pad, 0 if bmap is None else bmap.shape[1],
-        nprobe or 0, torch.cuda.current_stream(q.device).cuda_stream,
+        nprobe or 0, int(vb_i8),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"bucket_scan launch failed: CUDA error {err}")
-    bucket_scan.LAUNCHES += 1
+    if vb_i8:
+        bucket_scan.LAUNCHES_INT8F += 1
+    else:
+        bucket_scan.LAUNCHES += 1
     return out
 
 
 bucket_scan.LAUNCHES = 0
+bucket_scan.LAUNCHES_INT8F = 0

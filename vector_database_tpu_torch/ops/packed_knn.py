@@ -1,5 +1,5 @@
 """Packed bucketed k-NN scan: the serving path (port of
-``vector_database_tpu/ops/pallas_knn.py``, bf16 packs).
+``vector_database_tpu/ops/pallas_knn.py``).
 
 A database is packed once (``pack_database``): rows are cut into blocks of
 ``block`` rows, each stored transposed and scaled as ``-2v`` in bf16
@@ -12,6 +12,15 @@ the score's low mantissa bits. The ``k * oversample`` best buckets then
 expand to their ``block / m`` candidate rows each, and an exact f32 rerank
 of those rows gives the answer.
 
+Two int8 packs halve the blocks' bytes (``dtype=``), with the symmetric
+global scale ``sq = 127 / max|v|`` and blocks ``-v*sq`` in int8:
+``"int8f"`` keeps the f32 norm row and the summaries and scores through the
+same kernel (its int8 instantiation widens the blocks to bf16, queries are
+pre-scaled by ``2/sq``); ``"int8"`` stores the integer norm row
+``rint(|v|^2 sq^2/2)`` and scores exactly in int32 with int8 queries
+(``ops/bucket_scan_i8.py``), the block id in a second accumulator. The
+wider default shortlist (``oversample`` 16) absorbs the quantization.
+
 A true neighbor is lost only when a closer true neighbor lands in the same
 bucket (expected loss ~(k-1)/(2m) per neighbor) or when bf16 rounding
 pushes its bucket below the shortlist cut, which oversampling absorbs.
@@ -20,18 +29,20 @@ pushes its bucket below the shortlist cut, which oversampling absorbs.
 ``q_tile`` sorted queries shares one list of ``probes`` blocks, chosen by
 cell-centroid distance, and only those blocks stream.
 
-The int8 packs (``dtype="int8"``/``"int8f"``) and tombstone masking
-(``PackedDB.mask_rows``, ``row_mask=``) are not ported yet.
+Tombstone masking (``PackedDB.mask_rows``, ``row_mask=``) is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from vector_database_tpu_torch.ops.bucket_scan import bucket_scan
+from vector_database_tpu_torch.ops.bucket_scan_i8 import bucket_scan_i8
 from vector_database_tpu_torch.ops.exact import (
     as_f32,
     atleast_2d,
@@ -92,15 +103,16 @@ class PackedDB:
 
     ``vectors`` is the original f32 matrix (referenced, not copied) for
     the exact rerank; ``cent``/``rad`` are the per-cell pruning summaries
-    (radius -3e38 marks an all-padding cell)."""
+    (radius -3e38 marks an all-padding cell; None on pure-int8 packs)."""
 
-    vb: torch.Tensor  # [nb, d_pad, block] bf16, -2v (-v for ip)
-    vn: torch.Tensor  # [nb, 1, block] f32 |v|^2 (3e38 at padding)
+    vb: torch.Tensor  # [nb, d_pad, block] bf16 -2v (-v for ip) / int8 -v*sq
+    vn: torch.Tensor  # [nb, 1, block] f32 |v|^2 (3e38 pad) / int32 vn2 (2^30)
     vectors: torch.Tensor  # [N, D] f32
     n: int
     block: int
     m: int
     bits: int
+    sq: float = 0.0  # int8 query scale (0.0 on bf16 packs)
     metric: str = "l2"  # "l2" | "cosine" | "ip"
     cent: torch.Tensor | None = None  # [nb * cells, D] f32
     rad: torch.Tensor | None = None  # [nb * cells] f32
@@ -113,8 +125,8 @@ class PackedDB:
     def from_numpy(cls, arrays, meta, *, device=None) -> "PackedDB":
         """Pack from numpy buffers ``arrays`` (``vb``, ``vn``,
         ``vectors``, optional ``cent``/``rad``; ``vb`` may be an ml_dtypes
-        bfloat16 array) and ``meta`` (``n``, ``block``, ``m``, ``bits``,
-        optional ``metric``)."""
+        bfloat16 array or int8, ``vn`` f32 or int32) and ``meta`` (``n``,
+        ``block``, ``m``, ``bits``, optional ``sq`` and ``metric``)."""
         opt = {key: _to_tensor(arrays[key], device)
                for key in ("cent", "rad") if arrays.get(key) is not None}
         return cls(
@@ -122,7 +134,8 @@ class PackedDB:
             vn=_to_tensor(arrays["vn"], device),
             vectors=_to_tensor(arrays["vectors"], device),
             n=int(meta["n"]), block=int(meta["block"]), m=int(meta["m"]),
-            bits=int(meta["bits"]), metric=meta.get("metric", "l2"), **opt,
+            bits=int(meta["bits"]), sq=float(meta.get("sq", 0.0)),
+            metric=meta.get("metric", "l2"), **opt,
         )
 
 
@@ -150,22 +163,45 @@ def _cell_summary_body(vblk, rblk, *, cpb, cell):
     return cent, torch.where(cnt > 0, rad, -3.0e38)
 
 
-def _pack_blockwise(vectors, *, block, d_align, ip, n_valid, cell):
-    """The bf16 pack (zeroing, norm row, -2x bf16 transpose) and the
-    pruning summaries, a chunk of blocks at a time, so no full-size f32
-    temporary lives beside the matrix. Rows past ``n_valid`` (caller
-    padding, possibly +inf) are zeroed and get the 3e38 norm sentinel."""
+def _bf16_body(blk, real, *, ip):
+    """bf16 pack rows: ``-2v`` (``-v`` for ip) in bf16 and the f32 norm
+    row, 3e38 at padded/sentinel rows (large finite: +inf would break the
+    encode's integer bit operations)."""
+    vnb = torch.zeros_like(blk[:, 0]) if ip else torch.sum(blk * blk, dim=1)
+    scale = -1.0 if ip else -2.0
+    return (scale * blk).to(torch.bfloat16), torch.where(real, vnb, 3.0e38)
+
+
+def _int8_body(blk, real, *, sq, float_norms):
+    """int8 pack rows: ``clip(rint(v * -sq), -127, 127)`` with the f32
+    ``-sq`` (as ``jnp`` multiplies by a weakly typed scalar), and either
+    the f32 norm row (int8f, 3e38 pad) or ``rint(|v|^2 * sq^2/2)`` in
+    int32 (int8, 2^30 pad: above any real row, below the 2^31-1 init)."""
+    f32 = dict(dtype=torch.float32, device=blk.device)
+    vq = torch.clamp(torch.round(blk * torch.tensor(-sq, **f32)), -127, 127)
+    vnb = torch.sum(blk * blk, dim=1)
+    if float_norms:
+        return vq.to(torch.int8), torch.where(real, vnb, 3.0e38)
+    vn2 = torch.round(vnb * torch.tensor(sq * sq * 0.5, **f32))
+    return vq.to(torch.int8), torch.where(real, vn2.to(torch.int32), 2 ** 30)
+
+
+def _pack_blockwise(vectors, *, block, d_align, n_valid, cell, body):
+    """Pack a chunk of blocks at a time, so no full-size f32 temporary
+    lives beside the matrix: zero-pad and zero the rows past ``n_valid``
+    (caller padding, possibly +inf), run ``body(rows, real) -> (vb rows,
+    vn row)`` and store its rows transposed, and (unless ``cell`` is None)
+    the per-cell pruning summaries."""
     n, d = vectors.shape
     nv = n if n_valid is None else n_valid
     d_pad = _round_up(d, d_align)
     nb = _round_up(n, block) // block
-    cpb = block // cell
-    scale = -1.0 if ip else -2.0
     dev = vectors.device
-    vb = torch.empty((nb, d_pad, block), dtype=torch.bfloat16, device=dev)
-    vn = torch.empty((nb, 1, block), dtype=torch.float32, device=dev)
-    cent = torch.empty((nb, cpb, d), dtype=torch.float32, device=dev)
-    rad = torch.empty((nb, cpb), dtype=torch.float32, device=dev)
+    vb = vn = cent = rad = None
+    if cell is not None:
+        cpb = block // cell
+        cent = torch.empty((nb, cpb, d), dtype=torch.float32, device=dev)
+        rad = torch.empty((nb, cpb), dtype=torch.float32, device=dev)
     # ~256 MB of f32 temporaries per chunk
     chunk = max(1, (1 << 26) // (block * d_pad))
     for b0 in range(0, nb, chunk):
@@ -177,20 +213,22 @@ def _pack_blockwise(vectors, *, block, d_align, ip, n_valid, cell):
         blk[: r1 - r0, :d] = vectors[r0:r1]
         real = torch.arange(r0, r0 + nblk * block, device=dev) < nv
         blk = torch.where(real[:, None], blk, 0.0)
-        vnb = (torch.zeros(nblk * block, device=dev) if ip
-               else torch.sum(blk * blk, dim=1))
-        # padded/sentinel rows never win a bucket (large finite: +inf
-        # would break the encode's integer bit operations)
-        vn[b0:b1] = torch.where(real, vnb, 3.0e38).view(nblk, 1, block)
-        vb[b0:b1] = (scale * blk).to(torch.bfloat16).view(
-            nblk, block, d_pad).transpose(1, 2)
-        c, r = _cell_summary_body(
-            blk.view(nblk, block, d_pad), real.view(nblk, block),
-            cpb=cpb, cell=cell,
-        )
-        cent[b0:b1] = c[..., :d]
-        rad[b0:b1] = r
+        vbb, vnb = body(blk, real)
+        if vb is None:  # the body decides the packed dtypes
+            vb = torch.empty((nb, d_pad, block), dtype=vbb.dtype, device=dev)
+            vn = torch.empty((nb, 1, block), dtype=vnb.dtype, device=dev)
+        vn[b0:b1] = vnb.view(nblk, 1, block)
+        vb[b0:b1] = vbb.view(nblk, block, d_pad).transpose(1, 2)
+        if cell is not None:
+            c, r = _cell_summary_body(
+                blk.view(nblk, block, d_pad), real.view(nblk, block),
+                cpb=cpb, cell=cell,
+            )
+            cent[b0:b1] = c[..., :d]
+            rad[b0:b1] = r
         del blk
+    if cell is None:
+        return vb, vn, None, None
     return vb, vn, cent.reshape(nb * cpb, d), rad.reshape(nb * cpb)
 
 
@@ -216,16 +254,16 @@ def pack_database(
     (maximum inner product: ``-v`` blocks, zero norm row).
     ``rows_valid``: rows past this count are caller padding, excluded from
     bucket selection; they should hold +inf so the rerank never returns
-    them. ``dtype``: only ``"bfloat16"`` is ported.
+    them. ``dtype``: ``"bfloat16"`` (default), ``"int8"`` (half the
+    blocks' bytes, exact integer selection, no pruning) or ``"int8f"``
+    (int8 blocks, bf16 scoring, pruning); the int8 pair takes
+    ``"l2"``/``"cosine"`` only, no ``rows_valid``, and pads D to a
+    multiple of 32.
     """
     vectors = as_f32(vectors, device)
     if metric not in ("l2", "cosine", "ip"):
         raise ValueError(f"unknown metric: {metric}")
-    if dtype in ("int8", "int8f"):
-        raise NotImplementedError(
-            f"dtype={dtype!r} packs are not ported yet; use 'bfloat16'"
-        )
-    if dtype not in ("bfloat16", "bf16"):
+    if dtype not in ("bfloat16", "bf16", "int8", "int8f"):
         raise ValueError(f"unknown pack dtype: {dtype}")
     n, d = vectors.shape
     if block is None:
@@ -252,14 +290,30 @@ def pack_database(
             "database too large for this block size: raise `block` so "
             "that the number of blocks stays <= 65536"
         )
+    n_valid = None if rows_valid == n else rows_valid
+    sq = 0.0
+    if dtype in ("int8", "int8f"):
+        if metric == "ip":
+            raise ValueError("metric='ip' requires dtype='bfloat16'")
+        if n_valid is not None:
+            raise ValueError(
+                "rows_valid padding requires dtype='bfloat16' (the int8 "
+                "global scale would absorb the sentinel rows)"
+            )
+        d_align = max(d_align, 32)  # the int8 MMA's contraction step
+        sq = 127.0 / max(float(vectors.abs().max()), 1e-30)
+        body = functools.partial(_int8_body, sq=sq,
+                                 float_norms=dtype == "int8f")
+    else:
+        body = functools.partial(_bf16_body, ip=metric == "ip")
+    # the pure-int8 scan has no pruned variant: no summaries
     vb, vn, cent, rad = _pack_blockwise(
-        vectors, block=block, d_align=d_align, ip=metric == "ip",
-        n_valid=None if rows_valid == n else rows_valid,
-        cell=_summary_cell(block),
+        vectors, block=block, d_align=d_align, n_valid=n_valid,
+        cell=None if dtype == "int8" else _summary_cell(block), body=body,
     )
     return PackedDB(
         vb=vb, vn=vn, vectors=vectors, n=n, block=block, m=m, bits=bits,
-        metric=metric, cent=cent, rad=rad,
+        sq=sq, metric=metric, cent=cent, rad=rad,
     )
 
 
@@ -304,6 +358,21 @@ def _block_map(pack: PackedDB, queries, *, q_tile: int, probes: int):
     return order, bmap.to(torch.int32).contiguous()
 
 
+def _scan_queries(pack: PackedDB, qp: torch.Tensor) -> torch.Tensor:
+    """The scan kernel's query operand from padded f32 queries: bf16 for a
+    bf16 pack; ``qp * (2/sq)`` in bf16 for int8f (the blocks hold
+    ``-v*sq``, so the dot comes out as ``-2 q.v``); int8
+    ``clip(rint(qp * sq), -127, 127)`` for pure int8. Scales are f32, as
+    ``jnp`` rounds a weakly typed Python float."""
+    if pack.vb.dtype != torch.int8:
+        return qp.to(torch.bfloat16)
+    f32 = dict(dtype=torch.float32, device=qp.device)
+    if pack.vn.dtype == torch.int32:
+        qi = torch.round(qp * torch.tensor(pack.sq, **f32))
+        return torch.clamp(qi, -127, 127).to(torch.int8)
+    return (qp * torch.tensor(2.0 / pack.sq, **f32)).to(torch.bfloat16)
+
+
 def _shortlist_rows(
     pack: PackedDB,
     queries: torch.Tensor,  # [Q, D] float32, already metric-normalized
@@ -326,8 +395,10 @@ def _shortlist_rows(
     nb, d_pad, _ = pack.vb.shape
     q, d = queries.shape
     w = block // m
+    pure_i8 = pack.vn.dtype == torch.int32
     if oversample is None:
-        oversample = 4
+        # int8 quantization noise is absorbed by a wider shortlist
+        oversample = 16 if pack.vb.dtype == torch.int8 else 4
     q_pad = _round_up(q, q_tile)
     qp = torch.zeros((q_pad, d_pad), dtype=torch.float32,
                      device=queries.device)
@@ -346,6 +417,11 @@ def _shortlist_rows(
             width = nprobe = probes
     inv = bmap = None
     if nprobe is not None:
+        if pure_i8:
+            raise ValueError(
+                "probes= (block pruning) requires dtype='bfloat16' or "
+                "'int8f': the pure-int8 scan has no pruned variant"
+            )
         if pack.cent is None:
             raise ValueError(
                 "probes= needs block summaries; this pack was assembled "
@@ -355,17 +431,24 @@ def _shortlist_rows(
         inv = torch.empty_like(order)
         inv[order] = torch.arange(q, device=order.device)
         qp[:q] = qp[:q][order]
-    acc = bucket_scan(
-        pack.vn, pack.vb, qp.to(torch.bfloat16), m=m, bits=bits, bmap=bmap,
-        nprobe=nprobe, q_tile=q_tile if bmap is not None else None,
-    )
     # the k_scan best buckets, stable (lower bucket first on equal
     # scores, as lax.top_k); each carries w = block/m candidate rows
     k_scan = min(k * oversample, m)
-    vals, pos = torch.sort(acc[:q], dim=1, stable=True)
-    vals, pos = vals[:, :k_scan], pos[:, :k_scan]
-    # the winning block id rides the low mantissa bits of the score
-    blk = (vals.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
+    qs = _scan_queries(pack, qp)
+    if pure_i8:
+        # exact integer scores; the block ids come from their own output
+        scores, ids = bucket_scan_i8(pack.vn, pack.vb, qs, m=m)
+        pos = torch.sort(scores[:q], dim=1, stable=True).indices[:, :k_scan]
+        blk = ids[:q].gather(1, pos).to(torch.int64)
+    else:
+        acc = bucket_scan(
+            pack.vn, pack.vb, qs, m=m, bits=bits, bmap=bmap, nprobe=nprobe,
+            q_tile=q_tile if bmap is not None else None,
+        )
+        vals, pos = torch.sort(acc[:q], dim=1, stable=True)
+        vals, pos = vals[:, :k_scan], pos[:, :k_scan]
+        # the winning block id rides the low mantissa bits of the score
+        blk = (vals.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
     slices = torch.arange(w, device=pos.device) * m
     rows = (blk[:, :, None] * block + slices[None, None, :]
             + pos[:, :, None]).reshape(q, k_scan * w)
@@ -429,13 +512,15 @@ def pallas_scan_knn_packed(
     q_tile: int = 256,
     oversample: int | None = None,
     probes: int | None = None,
+    probes_max: int | None = None,
 ):
     """k-NN over a packed database (full scan, or pruned with
     ``probes``); see ``_scan_knn_packed_impl``. ``probes >= num_blocks``
-    (or None) is the full scan."""
+    (or None) is the full scan. ``probes_max`` (requires ``probes``)
+    selects the runtime-probes form, as ``pallas_scan_knn_packed_rt``."""
     return _scan_knn_packed_impl(
         pack, queries, k=k, q_tile=q_tile, oversample=oversample,
-        probes=probes,
+        probes=probes, probes_max=probes_max,
     )
 
 

@@ -15,6 +15,7 @@ import torch
 from vector_database_tpu_torch.ops.exact import as_f32, atleast_2d
 from vector_database_tpu_torch.ops.packed_knn import (
     PackedDB,
+    pack_database,
     pallas_scan_knn_packed,
     pallas_scan_knn_packed_rt,
 )
@@ -82,6 +83,19 @@ class PackedServer:
         self._probes = probes
         self._probes_max = probes_max
         self._min_probe_batch = min_probe_batch
+
+    @classmethod
+    def from_vectors(cls, vectors, *, k: int = 10, batch: int = 1024,
+                     **pack_kw) -> "PackedServer":
+        """Pack ``vectors`` once (``pack_database(**pack_kw)``) and wrap
+        the result; the steady-state serving constructor. The serve
+        keywords (``q_tile``, ``oversample``, ``probes``, ``probes_max``,
+        ``min_probe_batch``) are split off for the server."""
+        serve_kw = {key: pack_kw.pop(key) for key in (
+            "q_tile", "oversample", "probes", "probes_max",
+            "min_probe_batch") if key in pack_kw}
+        return cls(pack_database(vectors, **pack_kw), k=k, batch=batch,
+                   **serve_kw)
 
     @property
     def batch(self) -> int:
