@@ -24,16 +24,30 @@ Phases (each raises on failure; nothing is caught):
    full scans over both (recall@10 >= 0.90) and pruned int8f scans at
    probes 192/256/320; the exact int8 kernel bitwise equal to its plain
    version, the int8f route (full, and pruned to 256 blocks) within the
-   bf16 tolerance, and the pruned int8f equalities of phase 4; both
-   launch counts must rise;
+   bf16 tolerance (also on an int8f pack with a seeded 1% of rows
+   masked), and the pruned int8f equalities of phase 4; both launch
+   counts must rise;
 7. the A/B scan probe: each mode bitwise equal to its plain version on
    small integers at 3 blocks, then its entry point times the four modes
    at 10M rows and 1024 queries (its JSON lines), and ``full`` is held
-   bitwise to its plain version at that size, on small integers.
+   bitwise to its plain version at that size, on small integers;
+8. the mutable collections. (a) ``DynamicIndex`` over the same 10M x 96
+   rows: construction, a packed batch, ``remove_ids`` of a seeded 1% and
+   10,000 adds kept in the delta, packed full and pruned (256) batches
+   over the masked pack (QPS; recall@10 >= 0.98 against the live rows),
+   no removed id ever returned, added rows their own nearest at 0, the
+   base pack shared across the removal, ``knn(exact=True)`` equal to the
+   oracle, ``compact()``; then the kernel alone on the masked norm row
+   against its plain version, full and pruned. (b) ``DocumentStore`` of
+   200 documents x 5,000 texts (1M x 96): ingest, the combined build,
+   ``knn_batch(packed=True)`` (recall@10 >= 0.98), per-document k-NN and
+   ``search_batch`` equal to the oracles, 1,000 adds served from the
+   delta without a rebuild. The kernel's launch count must rise in each.
 
-It prints the card's name and power limit, one JSON line of kernel
-results, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
-device it exits non-zero and prints no result.
+It prints the card's name and power limit, one JSON line of phase-8
+results, one JSON line of kernel results, and, last, ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 import json
@@ -47,6 +61,8 @@ N, D, Q, K = 10_000_000, 96, 4096, 10
 LEAF, BUCKETS, TRUTH_Q = 16, 4096, 1024
 PROBES = (192, 256, 320)
 TREE_N, TREE_D = 1_000_000, 8
+REMOVE, ADD, EXACT_Q, PROBE = N // 100, 10_000, 256, 256
+STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
 REPS = 3
 DEVICE = "cuda"
 
@@ -66,6 +82,30 @@ def _ms(fn, reps):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _clustered(dev, n, seed):
+    """The bench recipe: n/1000 centres uniform in [-1, 1], sigma 0.05;
+    ``(train [n, D], test [Q, D], centres, generator)`` on ``dev``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = n // 1000
+    centers = torch.rand((c, D), generator=g, device=dev) * 2 - 1
+    train = torch.randn((n, D), generator=g, device=dev).mul_(0.05)
+    train += centers[torch.randint(0, c, (n,), generator=g, device=dev)]
+    test = _fresh(centers, Q, g)
+    return train, test, centers, g
+
+
+def _fresh(centers, n, g):
+    """``n`` more rows from the recipe's distribution."""
+    import torch
+
+    dev = centers.device
+    rows = centers[torch.randint(0, centers.shape[0], (n,), generator=g,
+                                 device=dev)]
+    return rows + 0.05 * torch.randn((n, D), generator=g, device=dev)
 
 
 def _recall(rows, truth):
@@ -113,6 +153,306 @@ def _compare_acc(got, want, pack, qb):
             raise AssertionError("kernel picked a block the plain version "
                                  "beats by more than the tolerance")
     return float(err.max()), qi.numel() / gi.numel()
+
+
+def _host_ms(fn, reps):
+    """Median milliseconds of ``reps`` runs of ``fn``, host clock, each
+    ending in a synchronise (for entry points that return host arrays)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _check_knn(got_ids, got_d2, want_ids, want_d2, what):
+    """``(ids, d2)`` numpy results against an exact oracle: sorted
+    distances within rtol 1e-5 and atol 1e-4 (both sides round |q|^2 +
+    |v|^2 - 2 q.v, or the difference form, in f32 with |q|^2 and |v|^2
+    near 32, where one ulp is 3.8e-6), and equal id sets except for ids
+    whose distance ties the k-th within that tolerance. Returns the
+    number of such ties."""
+    import numpy as np
+
+    np.testing.assert_allclose(got_d2, want_d2, rtol=1e-5, atol=1e-4,
+                               err_msg=what)
+    ties = 0
+    for gi, gd, wi, wd in zip(got_ids, got_d2, want_ids, want_d2):
+        extra = ~np.isin(gi, wi)
+        missing = ~np.isin(wi, gi)
+        if extra.sum() != missing.sum():
+            raise AssertionError(f"{what}: id sets differ in size")
+        bound = 1e-4 + 1e-5 * abs(float(wd[-1]))
+        if (gd[extra] < wd[-1] - bound).any() or \
+                (wd[missing] < gd[-1] - bound).any():
+            raise AssertionError(f"{what}: ids {gi} != oracle {wi}")
+        ties += int(extra.sum())
+    return ties
+
+
+def _dynamic_phase(dev):
+    """Phase 8a: ``DynamicIndex`` at N x D with churn, packed serving
+    over the masked pack, the exact scan, compaction; then the kernel
+    alone on the masked norm row."""
+    import numpy as np
+    import torch
+
+    from vector_database_tpu_torch import DynamicIndex, exact_knn
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.ops.packed_knn import _block_map
+
+    out = {}
+    train, test, centers, g = _clustered(dev, N, SEED)
+    torch.cuda.synchronize()
+    bs.bucket_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    idx = DynamicIndex(train, leaf_size=LEAF, device=dev)
+    torch.cuda.synchronize()
+    out["construct_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.knn(test, K, packed=True)
+    out["first_packed_s"] = time.perf_counter() - t0
+    base = idx._packed_base[1]
+    print(f"[dynamic] {N}x{D} leaf {LEAF}: construct "
+          f"{out['construct_s']:.3f} s; first packed batch q={Q} (pack "
+          f"included) {out['first_packed_s']:.3f} s")
+
+    removed = torch.randperm(N, generator=g, device=dev)[:REMOVE]
+    removed = np.sort(removed.cpu().numpy())
+    t0 = time.perf_counter()
+    if idx.remove_ids(removed) != REMOVE:
+        raise AssertionError("remove_ids did not remove every id")
+    out["remove_ids_s"] = time.perf_counter() - t0
+    fresh = _fresh(centers, ADD, g)
+    t0 = time.perf_counter()
+    fresh_ids = idx.add(fresh)
+    out["add_s"] = time.perf_counter() - t0
+    if idx._delta_size() != ADD or len(idx) != N - REMOVE + ADD:
+        raise AssertionError("the adds did not stay in the delta")
+
+    t0 = time.perf_counter()
+    ids, d2 = idx.knn(test, K, packed=True)
+    out["first_packed_after_remove_s"] = time.perf_counter() - t0
+    if idx._packed_base[1] is not base or idx._packed[1].vb is not base.vb:
+        raise AssertionError("the removal rebuilt the base pack")
+    out["packed_ms"] = _host_ms(lambda: idx.knn(test, K, packed=True), REPS)
+    q_dev = torch.as_tensor(test, device=dev)
+    out["delta_merge_ms"] = _host_ms(
+        lambda: idx.merge_delta(q_dev, ids, d2, K), REPS)
+    out["packed_qps"] = Q / out["packed_ms"] * 1e3
+
+    alive = torch.ones(N, dtype=torch.bool, device=dev)
+    alive[torch.from_numpy(removed).to(dev)] = False
+    live = torch.cat([train[alive], fresh])
+    live_ids = np.concatenate([torch.nonzero(alive)[:, 0].cpu().numpy(),
+                               fresh_ids])
+    del train
+    truth_pos, truth_d2 = exact_knn(live, test[:TRUTH_Q], k=K)
+    truth = torch.as_tensor(live_ids[truth_pos.cpu().numpy()])
+    out["packed_recall"] = _recall(torch.as_tensor(ids[:TRUTH_Q]), truth)
+    seen = [ids]
+
+    t0 = time.perf_counter()
+    pids, _ = idx.knn(test, K, packed=True, probes=PROBE)
+    out["pruned_first_s"] = time.perf_counter() - t0
+    out["pruned_ms"] = _host_ms(
+        lambda: idx.knn(test, K, packed=True, probes=PROBE), REPS)
+    out["pruned_qps"] = Q / out["pruned_ms"] * 1e3
+    out["pruned_recall"] = _recall(torch.as_tensor(pids[:TRUTH_Q]), truth)
+    seen.append(pids)
+    print(f"[dynamic] removed {REMOVE} ids in {out['remove_ids_s']:.3f} s, "
+          f"added {ADD} rows in {out['add_s']:.3f} s; packed q={Q}: first "
+          f"{out['first_packed_after_remove_s']:.3f} s, steady "
+          f"{out['packed_ms']:.3f} ms ({out['packed_qps']:.1f} QPS, delta "
+          f"merge alone {out['delta_merge_ms']:.3f} ms), recall@{K} "
+          f"{out['packed_recall']:.4f}; pruned {PROBE}: "
+          f"{out['pruned_ms']:.3f} ms ({out['pruned_qps']:.1f} QPS), "
+          f"recall@{K} {out['pruned_recall']:.4f}")
+    if out["packed_recall"] < 0.98:
+        raise AssertionError(f"DynamicIndex packed recall@{K} "
+                             f"{out['packed_recall']} < 0.98")
+
+    own, own_d2 = idx.knn(fresh[:1024], K, packed=True)
+    seen.append(own)
+    if not (np.array_equal(own[:, 0], fresh_ids[:1024])
+            and (own_d2[:, 0] == 0).all()):
+        raise AssertionError("an added row is not its own nearest at 0")
+
+    eids, ed2 = idx.knn(test[:EXACT_Q], K, exact=True)
+    seen.append(eids)
+    wd2 = truth_d2[:EXACT_Q].cpu().numpy()
+    wids = live_ids[truth_pos[:EXACT_Q].cpu().numpy()]
+    out["exact_ties"] = _check_knn(eids, ed2, wids, wd2, "knn(exact=True)")
+    out["exact_ms"] = _host_ms(lambda: idx.knn(test[:EXACT_Q], K,
+                                               exact=True), 1)
+    for got in seen:
+        if np.isin(got, removed).any():
+            raise AssertionError("a removed id was returned")
+    print(f"[dynamic] added rows found at distance 0; no removed id "
+          f"returned; base pack shared; knn(exact=True) on {EXACT_Q} "
+          f"queries == oracle ({out['exact_ties']} ties at the k-th), "
+          f"{out['exact_ms']:.3f} ms")
+    del live, truth_pos, truth_d2
+
+    masked = idx._packed[1]
+    t0 = time.perf_counter()
+    idx.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cids, _ = idx.knn(test, K, packed=True)
+    out["packed_after_compact_s"] = time.perf_counter() - t0
+    if np.isin(cids, removed).any() or len(idx) != N - REMOVE + ADD:
+        raise AssertionError("compaction lost or revived rows")
+    torch.cuda.synchronize()
+    out["launches"] = bs.bucket_scan.LAUNCHES
+    if out["launches"] < 1:
+        raise AssertionError("DynamicIndex never launched bucket_scan")
+    print(f"[dynamic] compact {out['compact_s']:.3f} s, then a packed "
+          f"batch {out['packed_after_compact_s']:.3f} s; bucket_scan "
+          f"launches {out['launches']}")
+    del idx
+
+    # the kernel alone on the masked norm row, full and pruned
+    d_pad = masked.vb.shape[1]
+    qb = torch.zeros((Q, d_pad), device=dev)
+    qb[:, :D] = test
+    qb = qb.bfloat16()
+    args = dict(m=masked.m, bits=masked.bits)
+    err, mis = _compare_acc(bs.bucket_scan(masked.vn, masked.vb, qb, **args),
+                            bs.bucket_scan_reference(masked.vn, masked.vb,
+                                                     qb, **args),
+                            masked, qb)
+    out["kernel_masked_max_abs_err"] = err
+    out["kernel_masked_ms"] = _ms(
+        lambda: bs.bucket_scan(masked.vn, masked.vb, qb, **args), REPS)
+    out["kernel_masked_plain_ms"] = _ms(
+        lambda: bs.bucket_scan_reference(masked.vn, masked.vb, qb, **args),
+        REPS)
+    order, bmap = _block_map(masked, test, q_tile=512, probes=PROBE)
+    qs = qb[order]
+    pargs = dict(args, bmap=bmap, nprobe=PROBE, q_tile=512)
+    perr, pmis = _compare_acc(
+        bs.bucket_scan(masked.vn, masked.vb, qs, **pargs),
+        bs.bucket_scan_reference(masked.vn, masked.vb, qs, **pargs),
+        masked, qs)
+    out["kernel_masked_pruned256_max_abs_err"] = perr
+    out["kernel_masked_pruned256_ms"] = _ms(
+        lambda: bs.bucket_scan(masked.vn, masked.vb, qs, **pargs), REPS)
+    out["kernel_masked_pruned256_plain_ms"] = _ms(
+        lambda: bs.bucket_scan_reference(masked.vn, masked.vb, qs, **pargs),
+        REPS)
+    print(f"[dynamic] kernel on the masked pack: full "
+          f"{out['kernel_masked_ms']:.3f} ms (plain "
+          f"{out['kernel_masked_plain_ms']:.3f}), max |score err| "
+          f"{err:.3g}, block-id ties {mis:.2e}; pruned {PROBE} "
+          f"{out['kernel_masked_pruned256_ms']:.3f} ms (plain "
+          f"{out['kernel_masked_pruned256_plain_ms']:.3f}), max |score err| "
+          f"{perr:.3g}")
+    return out
+
+
+def _store_phase(dev):
+    """Phase 8b: ``DocumentStore`` of STORE_DOCS x STORE_TEXTS texts:
+    ingest, the combined build, packed and per-document k-NN, batched
+    radius search, and adds served from the delta."""
+    import numpy as np
+    import torch
+
+    from vector_database_tpu_torch import DocumentStore, exact_ball, exact_knn
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+
+    out = {}
+    n = STORE_DOCS * STORE_TEXTS
+    train, test, centers, g = _clustered(dev, n, SEED + 3)
+    host = train.cpu().numpy()
+    bs.bucket_scan.LAUNCHES = 0
+    store = DocumentStore(leaf_size=LEAF, device=dev)
+    t0 = time.perf_counter()
+    docs = [store.create_document(f"doc{i}") for i in range(STORE_DOCS)]
+    for i, doc in enumerate(docs):
+        for row in host[i * STORE_TEXTS:(i + 1) * STORE_TEXTS]:
+            store.add_text(doc, row)  # text ids 1..n in row order
+    out["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store._combined_view()
+    torch.cuda.synchronize()
+    out["combined_build_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    store.knn_batch(test, K, packed=True)
+    out["first_packed_s"] = time.perf_counter() - t0
+    out["packed_ms"] = _host_ms(lambda: store.knn_batch(test, K,
+                                                        packed=True), REPS)
+    out["packed_qps"] = Q / out["packed_ms"] * 1e3
+    _, texts, _ = store.knn_batch(test, K, packed=True)
+    truth = exact_knn(train, test[:TRUTH_Q], k=K)[0] + 1  # row -> text id
+    out["packed_recall"] = _recall(torch.as_tensor(texts[:TRUTH_Q]), truth)
+    print(f"[store] {STORE_DOCS} docs x {STORE_TEXTS} texts ({n}x{D}): "
+          f"ingest {out['ingest_s']:.3f} s, combined build "
+          f"{out['combined_build_s']:.3f} s; knn_batch(packed) q={Q}: first "
+          f"{out['first_packed_s']:.3f} s, steady {out['packed_ms']:.3f} ms "
+          f"({out['packed_qps']:.1f} QPS), recall@{K} "
+          f"{out['packed_recall']:.4f}")
+    if out["packed_recall"] < 0.98:
+        raise AssertionError(f"DocumentStore packed recall@{K} "
+                             f"{out['packed_recall']} < 0.98")
+
+    doc = 7
+    lo = (doc - 1) * STORE_TEXTS
+    dd, dt, dd2 = store.knn_batch(test[:EXACT_Q], K, doc_id=doc)
+    want_pos, want_d2 = exact_knn(train[lo:lo + STORE_TEXTS], test[:EXACT_Q],
+                                  k=K)
+    if (dd != doc).any():
+        raise AssertionError("knn_batch(doc_id=) left the document")
+    out["doc_ties"] = _check_knn(dt, dd2, want_pos.cpu().numpy() + lo + 1,
+                                 want_d2.cpu().numpy(), "knn_batch(doc_id)")
+
+    gq = torch.Generator(device=dev).manual_seed(SEED + 5)
+    pts = train[torch.randint(0, n, (SEARCH_Q,), generator=gq, device=dev)]
+    radius = 0.6
+    t0 = time.perf_counter()
+    hits = store.search_batch(pts, radius)
+    out["search_batch_s"] = time.perf_counter() - t0
+    want = [set() for _ in range(SEARCH_Q)]
+    for s in range(0, n, 65536):
+        qi, ri = torch.nonzero(exact_ball(train[s:s + 65536], pts, radius),
+                               as_tuple=True)
+        for a, b in zip(qi.tolist(), ri.tolist()):
+            want[a].add(s + b + 1)
+    for i in range(SEARCH_Q):
+        if {t for _, t, _ in hits[i]} != want[i]:
+            raise AssertionError(f"search_batch != exact_ball, query {i}")
+    out["search_matches"] = sum(len(w) for w in want)
+    print(f"[store] knn_batch(doc_id={doc}) on {EXACT_Q} queries == "
+          f"exact_knn over its rows ({out['doc_ties']} ties at the k-th); "
+          f"search_batch r={radius} on {SEARCH_Q} rows == exact_ball "
+          f"({out['search_matches']} matches) in "
+          f"{out['search_batch_s']:.3f} s")
+
+    builds = store.combined_builds
+    extra = _fresh(centers, STORE_ADD, g).cpu().numpy()
+    new_tids = [store.add_text(docs[i % STORE_DOCS], row)
+                for i, row in enumerate(extra)]
+    t0 = time.perf_counter()
+    _, got, got_d2 = store.knn_batch(extra, K, packed=True)
+    out["delta_packed_s"] = time.perf_counter() - t0
+    if store.combined_builds != builds or len(store._delta) != STORE_ADD:
+        raise AssertionError("add_text rebuilt the combined index")
+    if not (np.array_equal(got[:, 0], new_tids) and (got_d2[:, 0] == 0).all()):
+        raise AssertionError("an added text is not its own nearest at 0")
+    torch.cuda.synchronize()
+    out["launches"] = bs.bucket_scan.LAUNCHES
+    if out["launches"] < 1:
+        raise AssertionError("DocumentStore never launched bucket_scan")
+    print(f"[store] {STORE_ADD} add_text rows served from the delta at "
+          f"distance 0 ({out['delta_packed_s']:.3f} s for the batch), no "
+          f"rebuild; bucket_scan launches {out['launches']}")
+    return out
 
 
 def main():
@@ -176,13 +516,7 @@ def main():
     print("[exact] 4000x24, 64 queries, k=5: kernel scan == exact_knn")
 
     # ---- 3. the main path ----------------------------------------------
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    c = N // 1000
-    centers = torch.rand((c, D), generator=g, device=dev) * 2 - 1
-    train = torch.randn((N, D), generator=g, device=dev).mul_(0.05)
-    train += centers[torch.randint(0, c, (N,), generator=g, device=dev)]
-    test = centers[torch.randint(0, c, (Q,), generator=g, device=dev)]
-    test = test + 0.05 * torch.randn((Q, D), generator=g, device=dev)
+    train, test, _, _ = _clustered(dev, N, SEED)
     torch.cuda.synchronize()
 
     bs.bucket_scan.LAUNCHES = 0
@@ -411,7 +745,15 @@ def main():
         raise AssertionError("int8f runtime probes != static probes")
     print("[int8] int8f probes=nb == full scan (bitwise); runtime probes "
           "256 == static probes 256 (bitwise)")
-    del full, pruned, srv, pruned8, pack, packs, p8, p8f, index
+    # a tombstoned int8f pack: a seeded 1% of rows dead (3e38 norms)
+    g8 = torch.Generator(device=dev).manual_seed(SEED + 4)
+    p8m = p8f.mask_rows(torch.rand(N, generator=g8, device=dev) >= 0.01)
+    acc_k = bs.bucket_scan(p8m.vn, p8m.vb, qf, **args8)
+    acc_p = bs.bucket_scan_reference(p8m.vn, p8m.vb, qf, **args8)
+    i8m_err, i8m_mis = _compare_acc(acc_k, acc_p, p8m, qf)
+    print(f"[int8] int8f kernel on a masked pack (1% dead): max |score "
+          f"err| {i8m_err:.3g}, block-id ties {i8m_mis:.2e}")
+    del full, pruned, srv, pruned8, pack, packs, p8, p8f, p8m, index
     del acc_k, acc_p, acc_all, pk, pp
 
     # ---- 7. the A/B scan probe -------------------------------------------
@@ -467,6 +809,11 @@ def main():
           f"kernel {ab_ms:.3f} ms, plain {ab_plain_ms:.3f} ms, bitwise "
           "equal")
     del vn_ab, vb_ab, q_ab, qn_ab, ab_k, ab_p
+    torch.cuda.empty_cache()
+
+    # ---- 8. the mutable collections ----------------------------------------
+    dyn = _dynamic_phase(dev)
+    store = _store_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -474,6 +821,7 @@ def main():
                           for key, r in results.items()
                           for f, val in r.items()},
     )}))
+    print(json.dumps({"mutable": dict(dynamic=dyn, store=store)}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
@@ -495,6 +843,17 @@ def main():
         "int8f_pruned256_ms": i8p_ms,
         "int8f_pruned256_plain_ms": i8p_plain_ms,
         "int8f_pruned256_max_abs_err": i8p_err,
+        "int8f_masked_max_abs_err": i8m_err,
+        "masked_launches_dynamic": dyn["launches"],
+        "masked_launches_store": store["launches"],
+        "masked_max_abs_err": dyn["kernel_masked_max_abs_err"],
+        "masked_ms": dyn["kernel_masked_ms"],
+        "masked_plain_ms": dyn["kernel_masked_plain_ms"],
+        "masked_pruned256_max_abs_err":
+            dyn["kernel_masked_pruned256_max_abs_err"],
+        "masked_pruned256_ms": dyn["kernel_masked_pruned256_ms"],
+        "masked_pruned256_plain_ms":
+            dyn["kernel_masked_pruned256_plain_ms"],
     }, {
         "name": "bucket_scan_i8",
         "route": "cuda",

@@ -1,9 +1,11 @@
 """The fused build of vector_database_tpu_torch against the JAX package.
 
 On integer-valued data every f32 prefix sum is exact, so summation order
-cannot matter and the node tables must be bitwise equal. On float data
-the trees may differ in the last ulp of a plane; there the search must
-equal the exact oracle.
+cannot matter and the node tables must be bitwise equal, under both tie
+rules (``mean_id`` id sums are exact integers on both sides: int32 limbs
+in JAX, one int64 prefix sum in the port). On float data the trees may
+differ in the last ulp of a plane; there the search must equal the exact
+oracle.
 """
 
 import numpy as np
@@ -50,6 +52,37 @@ def test_duplicates_and_depth_cap_bitwise_equal(leaf_size, max_levels):
     _assert_same_tree(build_index_fused(v, **kw), jax_build(v, **kw))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(leaf_size=1),
+    dict(leaf_size=4, split="max"),
+    dict(leaf_size=3, stats_subsample=4),
+    dict(leaf_size=8, max_levels=4),
+])
+def test_mean_id_ties_bitwise_equal(kw):
+    """Duplicate-heavy integer data, shuffled so that ids and positions
+    disagree: plane ties and whole zero-variance segments split by
+    ``id > floor(mean id)``, and the rows move."""
+    rng = np.random.default_rng(17)
+    v = np.repeat(rng.integers(-3, 4, (60, 5)), 7, axis=0).astype(np.float32)
+    v = v[rng.permutation(v.shape[0])]
+    _assert_same_tree(build_index_fused(v, tie_break="mean_id", **kw),
+                      jax_build(v, tie_break="mean_id", **kw))
+
+
+def test_mean_id_row_bound_matches_jax():
+    """Both packages accept mean_id builds up to 2^30 - 1 rows."""
+    from vector_database_tpu.ops.sorted_build import id_limb_plan
+    from vector_database_tpu_torch.ops.sorted_build import check_mean_id_rows
+
+    for n in (1000, 17_000_000, 2 ** 30 - 1):
+        id_limb_plan(n)
+        check_mean_id_rows(n)
+    with pytest.raises(ValueError, match="2\\^30"):
+        id_limb_plan(2 ** 30)
+    with pytest.raises(ValueError, match="2\\^30"):
+        check_mean_id_rows(2 ** 30)
+
+
 def test_float_data_search_equals_oracle():
     v = datasets.random_uniform(4000, 6, seed=21)
     q = datasets.random_uniform(16, 6, seed=22)
@@ -82,8 +115,10 @@ def test_npz_round_trip_between_packages(tmp_path):
 
 def test_argument_errors():
     v = datasets.random_uniform(100, 4, seed=1)
-    with pytest.raises(NotImplementedError):
-        build_index_fused(v, tie_break="mean_id")
+    # mean_id builds (it raised NotImplementedError before it was ported)
+    assert build_index_fused(v, tie_break="mean_id").n == 100
+    with pytest.raises(ValueError, match="tie_break"):
+        build_index_fused(v, tie_break="median")
     with pytest.raises(ValueError):
         build_index_fused(v[:0])
     with pytest.raises(ValueError):

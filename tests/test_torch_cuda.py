@@ -98,3 +98,38 @@ def test_probe_kernel_matches_plain_on_card(cuda_device, mode):
     got = tab.probe_kernel_ab(mode, vn, vb, q, qn, **args)
     want = tab.probe_kernel_ab_reference(mode, vn, vb, q, qn, **args)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8f,pruned", [(False, False), (False, True),
+                                          (True, False)])
+def test_kernel_matches_plain_on_masked_pack(cuda_device, int8f, pruned):
+    """Tombstones: ``mask_rows`` gives dead rows the 3e38 norm sentinel.
+    On exact inputs the kernel equals its plain version bitwise on the
+    masked norm row, and no bucket is won by a dead row (every bucket
+    keeps live rows, and a dead row scores about 3e38)."""
+    from vector_database_tpu_torch.ops.packed_knn import _mask_vn
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    kw = dict(generator=g, device=cuda_device)
+    nb, d_pad, block = 5, 96, 1024
+    if int8f:
+        vb = torch.randint(-127, 128, (nb, d_pad, block), dtype=torch.int8,
+                           **kw)
+        q = (torch.randint(-128, 129, (64, d_pad), **kw) / 64.0).bfloat16()
+    else:
+        vb = torch.randint(-2, 3, (nb, d_pad, block), **kw).bfloat16()
+        q = (torch.randint(-8, 9, (64, d_pad), **kw) / 8.0).bfloat16()
+    vn = torch.randint(0, 241, (nb, 1, block), **kw) / 8.0
+    n = nb * block - 100  # the last rows are padding past n
+    alive = torch.rand(n, **kw) >= 0.1
+    vn = _mask_vn(vn, alive, n)
+    args = dict(m=512, bits=3)
+    if pruned:
+        args.update(bmap=torch.tensor([[4, 0, 2], [1, 3, 0]],
+                                      dtype=torch.int32, device=cuda_device),
+                    nprobe=3, q_tile=32)
+    got = tbs.bucket_scan(vn, vb, q, **args)
+    want = tbs.bucket_scan_reference(vn, vb, q, **args)
+    assert torch.equal(got, want)
+    assert bool((got < 1e30).all())  # every winner is a live row

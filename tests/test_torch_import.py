@@ -23,6 +23,9 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.ops.packed_knn",
     "vector_database_tpu_torch.ops.bucket_scan_i8",
     "vector_database_tpu_torch.benchmarks.probe_kernel_ab",
+    "vector_database_tpu_torch.ops.scan_knn",
+    "vector_database_tpu_torch.dynamic",
+    "vector_database_tpu_torch.document_store",
 ])
 def test_import_leaves_jax_out(module):
     code = (

@@ -338,3 +338,101 @@ def test_candidates_match_jax_and_contain_results():
     rows, _ = tpk.pallas_scan_knn_packed(pack, queries, k=5, q_tile=8)
     for r, c in zip(rows.tolist(), tc.tolist()):
         assert set(r) <= set(c)
+
+
+def _int_data(seed, n, d, q):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-4, 5, (n, d)).astype(np.float32),
+            rng.integers(-4, 5, (q, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8f"])
+def test_mask_rows_vn_matches_jax(dtype):
+    """Dead rows get the 3e38 sentinel, bitwise as JAX's ``_mask_vn``;
+    every other tensor is shared with the unmasked pack."""
+    vecs = datasets.random_uniform(1000, 12, seed=171)
+    alive = np.random.default_rng(172).random(1000) >= 0.1
+    jpack = jpk.pack_database(vecs, block=256, buckets=128, dtype=dtype)
+    pack = _port_pack(jpack)
+    masked = pack.mask_rows(alive)
+    np.testing.assert_array_equal(masked.vn.numpy(),
+                                  np.asarray(jpack.mask_rows(alive).vn))
+    assert masked.vb is pack.vb and masked.vectors is pack.vectors
+    assert masked.cent is pack.cent and masked.rad is pack.rad
+    assert (masked.vn.view(-1)[:1000][~torch.from_numpy(alive)]
+            == 3.0e38).all()
+    assert torch.equal(masked.vn.view(-1)[1000:], pack.vn.view(-1)[1000:])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8f"])
+@pytest.mark.parametrize("probes", [None, 3])
+def test_masked_packed_knn_matches_jax(dtype, probes):
+    """Tombstone serving over an immutable pack: ``mask_rows`` plus
+    ``row_mask=`` on the integer-valued fixture. bf16: rows and distances
+    bitwise equal to JAX's; int8f (queries scaled by 2/sq, sums not
+    exact): equal sets, distances rtol 1e-5. No dead row is returned."""
+    vecs, queries = _int_data(173, 4000, 8, 40)
+    alive = np.random.default_rng(174).random(4000) >= 0.2
+    jpack = jpk.pack_database(vecs, block=512, buckets=128, dtype=dtype)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, dtype=dtype)
+    kw = dict(k=6, q_tile=8, probes=probes)
+    jr, jd = jpk.pallas_scan_knn_packed(jpack.mask_rows(alive), queries,
+                                        row_mask=alive, **kw)
+    tr, td = tpk.pallas_scan_knn_packed(pack.mask_rows(alive), queries,
+                                        row_mask=alive, **kw)
+    jr, jd = np.asarray(jr), np.asarray(jd)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(tr.numpy(), jr)
+        np.testing.assert_array_equal(td.numpy(), jd)
+    else:
+        for a, b in zip(tr.numpy(), jr):
+            assert set(a.tolist()) == set(b.tolist())
+        np.testing.assert_allclose(td.numpy(), jd, rtol=1e-5)
+    got = tr.numpy()
+    assert alive[got[got >= 0]].all()
+    # the runtime-probes entry takes the mask too
+    if probes is not None:
+        rr, rd = tpk.pallas_scan_knn_packed_rt(
+            pack.mask_rows(alive), queries, probes, k=6, q_tile=8,
+            probes_max=5, row_mask=alive)
+        assert torch.equal(rr, tr) and torch.equal(rd, td)
+
+
+def test_row_mask_keeps_dead_bucket_mates_out():
+    """A masked pack keeps dead rows from winning a bucket, but a bucket
+    expands to block/m rows and a dead bucket-mate may ride along; the
+    ``row_mask`` half keeps it out of the rerank. With one row per bucket
+    (m = block) the masked pack alone suffices, and the answer equals the
+    exact oracle over the live rows."""
+    from vector_database_tpu_torch.ops.exact import exact_knn
+
+    vecs = datasets.random_uniform(2000, 10, seed=175)
+    queries = datasets.random_uniform(24, 10, seed=176)
+    alive = np.random.default_rng(177).random(2000) >= 0.3
+    pack = tpk.pack_database(vecs, block=512, buckets=128)
+    for p in (pack, pack.mask_rows(alive)):
+        rows, _ = tpk.pallas_scan_knn_packed(p, queries, k=5, q_tile=8,
+                                             row_mask=alive)
+        got = rows.numpy()
+        assert alive[got[got >= 0]].all()
+    rows, _ = tpk.pallas_scan_knn_packed(pack.mask_rows(alive), queries,
+                                         k=5, q_tile=8)
+    got = rows.numpy()
+    assert not alive[got[got >= 0]].all()  # bucket-mates without row_mask
+    one = tpk.pack_database(vecs, block=512, buckets=512)
+    live = np.nonzero(alive)[0]
+    rows, d2 = tpk.pallas_scan_knn_packed(one.mask_rows(alive), queries,
+                                          k=5, q_tile=8)
+    erows, ed2 = exact_knn(vecs[live], queries, k=5)
+    for a, b in zip(rows.tolist(), erows.tolist()):
+        assert set(a) == set(live[b].tolist())
+    np.testing.assert_allclose(d2.numpy(), ed2.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_mask_rows_rejects_pure_int8():
+    vecs = datasets.random_uniform(600, 8, seed=178)
+    alive = np.ones(600, bool)
+    for pkg in (jpk, tpk):
+        i8 = pkg.pack_database(vecs, block=256, buckets=128, dtype="int8")
+        with pytest.raises(ValueError, match="mask_rows"):
+            i8.mask_rows(alive)

@@ -15,7 +15,13 @@ import pytest
 import torch
 
 from vector_database_tpu import build_index_fused as jax_build
-from vector_database_tpu_torch import exact_ball, exact_knn, knn, search
+from vector_database_tpu_torch import (
+    build_index_fused,
+    exact_ball,
+    exact_knn,
+    knn,
+    search,
+)
 from vector_database_tpu_torch.models.bsp import BSPIndex
 from vector_database_tpu_torch.utils import datasets
 
@@ -126,3 +132,51 @@ def test_calibrate_radius_and_auto_radius_knn():
         warnings.simplefilter("error")
         rows, d2 = knn(tidx, q, 5)  # radius=None: calibrated
     assert rows.shape == (32, 5)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(leaf_size=2),
+    dict(leaf_size=4, split="max"),
+    dict(leaf_size=1, tie_break="mean_id"),
+])
+def test_locate_matches_jax(kw):
+    """Duplicate-heavy integer data (bitwise equal trees in both
+    packages): stored rows, off-grid misses and on-grid points. Paths
+    through dual nodes that miss take the exact ``search(q, 0.0)``
+    fallback, which must pick the same duplicate as JAX's DFS."""
+    rng = np.random.default_rng(3)
+    v = np.repeat(rng.integers(-2, 3, (80, 4)), 5, axis=0).astype(np.float32)
+    v = v[rng.permutation(v.shape[0])]
+    q = np.concatenate([
+        v[rng.integers(0, v.shape[0], 30)],
+        rng.integers(-2, 3, (20, 4)).astype(np.float32) + 0.5,
+        rng.integers(-2, 3, (20, 4)).astype(np.float32),
+    ])
+    jidx, tidx = jax_build(v, **kw), build_index_fused(v, **kw)
+    jl, jd = jsearch._descend(jidx.dim, jidx.mid, jidx.low, jidx.high, q,
+                              depth=jidx.depth)
+    tl, td = tsearch._descend(tidx.dim, tidx.mid, tidx.low, tidx.high,
+                              torch.from_numpy(q), depth=tidx.depth)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    want = np.asarray(jsearch.locate(jidx, q))
+    got = tsearch.locate(tidx, q).numpy()
+    np.testing.assert_array_equal(got, want)
+    found = got >= 0
+    np.testing.assert_array_equal(v[got[found]], q[found])
+    # the stored rows are all found, some of them through the fallback
+    assert found[:30].all()
+    assert (td.numpy() & (got >= 0)).any()
+
+
+def test_locate_fallback_below_a_dual_node():
+    """A zero-variance split dimension makes a dual node whose low guess
+    misses: the exact fallback finds the row."""
+    v = np.array([[0, 0], [0, 1], [0, 2], [0, 3]], np.float32)
+    idx = build_index_fused(v, leaf_size=1, split="alternate")
+    rows = tsearch.locate(idx, v)
+    np.testing.assert_array_equal(rows.numpy(), [0, 1, 2, 3])
+    want = np.asarray(jsearch.locate(jax_build(v, leaf_size=1), v))
+    np.testing.assert_array_equal(rows.numpy(), want)
+    assert tsearch.locate(idx, np.array([0.5, 0.5], np.float32)).tolist() \
+        == [-1]

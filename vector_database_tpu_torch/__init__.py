@@ -18,13 +18,23 @@ The ported slices are the main path and the int8 capacity path:
 - the exact oracle (``ops/exact.py``) and the exact radius ``search`` /
   ``knn`` through the tree (``search.py``);
 - the A/B probe of the scan's time split
-  (``benchmarks/probe_kernel_ab.py``, its own CUDA kernel).
+  (``benchmarks/probe_kernel_ab.py``, its own CUDA kernel);
+- the mutable collections: ``DynamicIndex`` (``dynamic.py``: main
+  segment + delta, tombstones served over a packed scan through
+  ``PackedDB.mask_rows``, compaction) and ``DocumentStore``
+  (``document_store.py``: documents, texts, per-document indexes and a
+  store-wide serving index), over the blocked streaming scan
+  ``scan_knn`` (``ops/scan_knn.py``);
+- ``locate``, the exact-match point lookup by single-branch descent, and
+  the reference's ``tie_break="mean_id"`` build.
 
 Tensors stay on the device they are given (or the ``device=`` argument);
 on CPU tensors each kernel's plain torch version runs instead.
 """
 
 from vector_database_tpu_torch.builder import build_index_fused
+from vector_database_tpu_torch.document_store import DocumentStore
+from vector_database_tpu_torch.dynamic import DynamicIndex
 from vector_database_tpu_torch.models.bsp import BSPIndex
 from vector_database_tpu_torch.ops.exact import (
     exact_ball,
@@ -40,10 +50,12 @@ from vector_database_tpu_torch.ops.packed_knn import (
     pallas_scan_knn_packed,
     pallas_scan_knn_packed_rt,
 )
+from vector_database_tpu_torch.ops.scan_knn import scan_knn
 from vector_database_tpu_torch.search import (
     SearchResult,
     calibrate_radius,
     knn,
+    locate,
     search,
 )
 from vector_database_tpu_torch.serving import PackedServer
@@ -52,6 +64,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BSPIndex",
+    "DocumentStore",
+    "DynamicIndex",
     "PackedDB",
     "PackedServer",
     "SearchResult",
@@ -62,10 +76,12 @@ __all__ = [
     "exact_knn",
     "exact_mips",
     "knn",
+    "locate",
     "normalize_rows",
     "pack_database",
     "pallas_scan_knn",
     "pallas_scan_knn_packed",
     "pallas_scan_knn_packed_rt",
+    "scan_knn",
     "search",
 ]

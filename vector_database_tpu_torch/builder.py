@@ -16,6 +16,7 @@ import torch
 from vector_database_tpu_torch.models.bsp import BSPIndex
 from vector_database_tpu_torch.ops.exact import as_f32
 from vector_database_tpu_torch.ops.sorted_build import (
+    check_mean_id_rows,
     segment_capacity,
     sorted_build,
 )
@@ -40,8 +41,11 @@ def build_index_fused(
     become oversized leaves. ``stats_subsample``: rank split dimensions
     from every k-th row (default 4 above 500k rows, else 1); the split
     planes stay exact. ``tie_break``: ``"positional"`` halves rows on the
-    plane by rank (``"mean_id"`` is not ported yet). ``progress``: host
-    callback ``(level, live_segments, active_rows)`` once per level.
+    plane (and zero-variance segments) by rank; ``"mean_id"`` is the
+    reference rule ``id > floor(mean(ids))`` with exact id sums, for
+    reference tree-shape parity (at most 2^30 - 1 rows, as in the JAX
+    package). ``progress``: host callback ``(level, live_segments,
+    active_rows)`` once per level.
     ``split``: ``"alternate"`` (the reference's max/min-variance parity
     rule) or ``"max"`` (max variance every level).
     """
@@ -55,6 +59,8 @@ def build_index_fused(
         raise ValueError("tie_break must be 'positional' or 'mean_id'")
     if split not in ("alternate", "max"):
         raise ValueError("split must be 'alternate' or 'max'")
+    if tie_break == "mean_id":
+        check_mean_id_rows(n)
     hard_cap = max_levels if max_levels is not None else n + 64
     if stats_subsample is None:
         # above ~500k rows, subsample the variance ranking pass

@@ -32,6 +32,14 @@ def atleast_2d(x: torch.Tensor) -> torch.Tensor:
     return x if x.dim() >= 2 else x.reshape(1, -1)
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device (one copy to the host) or an array-like as
+    a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run f32 matmuls at full f32 precision (TF32 off) inside the block."""

@@ -29,8 +29,11 @@ pushes its bucket below the shortlist cut, which oversampling absorbs.
 ``q_tile`` sorted queries shares one list of ``probes`` blocks, chosen by
 cell-centroid distance, and only those blocks stream.
 
-Tombstone masking (``PackedDB.mask_rows``, ``row_mask=``) is not ported
-yet.
+Tombstones: ``PackedDB.mask_rows(alive)`` gives dead rows the 3e38 norm
+sentinel (the kernel's padding value), so they never win a bucket, and
+``row_mask=`` on the serve call keeps a dead row that shares a winning
+bucket out of the rerank. Together they serve an immutable pack with
+rows removed, without repacking.
 """
 
 from __future__ import annotations
@@ -121,6 +124,21 @@ class PackedDB:
     def device(self) -> torch.device:
         return self.vb.device
 
+    def mask_rows(self, alive) -> "PackedDB":
+        """A new ``PackedDB`` sharing every tensor except the norm row:
+        rows where ``alive`` (``[n]`` bool) is False get the 3e38
+        sentinel, so they can never win a bucket. Pass the same mask as
+        ``row_mask=`` to the serve call. The pruning summaries are shared
+        unchanged: dead rows still steer block selection a little until
+        the next repack. Pure-int8 packs (integer norm row) raise."""
+        if self.vn.dtype == torch.int32:
+            raise ValueError(
+                "mask_rows requires dtype='bfloat16'/'int8f' (the pure "
+                "-int8 integer norm row has no masked encoding)"
+            )
+        alive = torch.as_tensor(alive, device=self.device).bool()
+        return dataclasses.replace(self, vn=_mask_vn(self.vn, alive, self.n))
+
     @classmethod
     def from_numpy(cls, arrays, meta, *, device=None) -> "PackedDB":
         """Pack from numpy buffers ``arrays`` (``vb``, ``vn``,
@@ -137,6 +155,15 @@ class PackedDB:
             bits=int(meta["bits"]), sq=float(meta.get("sq", 0.0)),
             metric=meta.get("metric", "l2"), **opt,
         )
+
+
+def _mask_vn(vn, alive, n):
+    """``vn`` with 3e38 wherever ``alive`` (``[n]``, padded False to the
+    pack's rows) is False."""
+    nb, _, block = vn.shape
+    a = torch.zeros(nb * block, dtype=torch.bool, device=vn.device)
+    a[:n] = alive
+    return torch.where(a.view(nb, 1, block), vn, 3.0e38)
 
 
 def _summary_cell(block: int) -> int:
@@ -465,11 +492,14 @@ def _scan_knn_packed_impl(
     oversample: int | None = None,
     probes: int | None = None,
     probes_max: int | None = None,
+    row_mask=None,
 ):
     """Exact-reranked k-NN over a packed database: ``(rows [Q, k],
     sq_dists [Q, k])``; for ``metric="ip"`` packs the second output is
     exact dots, highest first. Returned distances are exact f32 for
-    whatever rows come back; -1 / +inf pad."""
+    whatever rows come back; -1 / +inf pad. ``row_mask``: optional
+    ``[n]`` bool; rows where it is False score +inf in the rerank (pair
+    it with ``PackedDB.mask_rows``)."""
     queries = atleast_2d(as_f32(queries, pack.device))
     if pack.metric == "cosine":
         queries = normalize_rows(queries)
@@ -489,6 +519,10 @@ def _scan_knn_packed_impl(
     # scores -inf/NaN and would win: mask on finiteness)
     key = torch.where((short_rows < n) & torch.isfinite(key), key,
                       float("inf"))
+    if row_mask is not None:
+        # a dead row sharing a winning bucket must not take a result slot
+        row_mask = torch.as_tensor(row_mask, device=pack.device).bool()
+        key = torch.where(row_mask[safe], key, float("inf"))
     kk = min(k, short_rows.shape[1])
     out_key, fpos = torch.sort(key, dim=1, stable=True)
     out_key, fpos = out_key[:, :kk], fpos[:, :kk]
@@ -513,6 +547,7 @@ def pallas_scan_knn_packed(
     oversample: int | None = None,
     probes: int | None = None,
     probes_max: int | None = None,
+    row_mask=None,
 ):
     """k-NN over a packed database (full scan, or pruned with
     ``probes``); see ``_scan_knn_packed_impl``. ``probes >= num_blocks``
@@ -520,7 +555,7 @@ def pallas_scan_knn_packed(
     selects the runtime-probes form, as ``pallas_scan_knn_packed_rt``."""
     return _scan_knn_packed_impl(
         pack, queries, k=k, q_tile=q_tile, oversample=oversample,
-        probes=probes, probes_max=probes_max,
+        probes=probes, probes_max=probes_max, row_mask=row_mask,
     )
 
 
@@ -533,6 +568,7 @@ def pallas_scan_knn_packed_rt(
     probes_max: int,
     q_tile: int = 256,
     oversample: int | None = None,
+    row_mask=None,
 ):
     """Runtime-probes pruned serving: like ``pallas_scan_knn_packed(
     probes=p)`` with ``p`` clipped into ``[1, min(probes_max, nb)]``; the
@@ -541,7 +577,7 @@ def pallas_scan_knn_packed_rt(
     bit."""
     return _scan_knn_packed_impl(
         pack, queries, k=k, q_tile=q_tile, oversample=oversample,
-        probes=probes, probes_max=probes_max,
+        probes=probes, probes_max=probes_max, row_mask=row_mask,
     )
 
 

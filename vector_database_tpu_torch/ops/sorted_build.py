@@ -23,8 +23,11 @@ Differences from the JAX program, none of which changes a result:
   one-hot mask (the same value for finite rows).
 
 Ties: ``tie_break="positional"`` halves rows on the plane (and whole
-zero-variance segments) by rank inside the segment. The reference-parity
-``"mean_id"`` rule is not ported yet.
+zero-variance segments) by rank inside the segment. ``"mean_id"`` is the
+reference rule: plane ties go high when ``id > floor(sum_ids / count)``,
+and zero-variance segments split by that rule alone (rows move). The
+segment id sums are one int64 prefix sum, where the TPU program summed
+int32 limbs (``_exact_mean_id``); the quotient is the same exact integer.
 """
 
 from __future__ import annotations
@@ -33,6 +36,17 @@ import torch
 
 # dimensions per prefix-scan pass: bounds the [chunk, N/k] transients
 _D_CHUNK = 128
+
+
+def check_mean_id_rows(n_total: int) -> None:
+    """The JAX build keeps ids in int32 and its limb plan
+    (``id_limb_plan``) refuses 2^30 rows or more under ``mean_id``; the
+    port accepts the same inputs and raises the same error."""
+    if n_total << 1 >= 2 ** 31:
+        raise ValueError(
+            "mean_id tie-break supports at most 2^30 - 1 rows (int32 "
+            "ids); use positional ties beyond that"
+        )
 
 
 def segment_capacity(n: int, leaf_size: int) -> int:
@@ -63,10 +77,7 @@ def sorted_build(
     the original row stored at position ``i``. ``s_max`` and ``m_max``
     bound the live segments and nodes (checked, not used for sizing).
     """
-    if tie_break != "positional":
-        raise NotImplementedError(
-            "tie_break='mean_id' is not ported yet; use 'positional'"
-        )
+    mean_id_ties = tie_break == "mean_id"
     n, d = vectors.shape
     dev = vectors.device
     i64 = dict(dtype=torch.int64, device=dev)
@@ -140,6 +151,13 @@ def sorted_build(
         p_dim = split_dim[ps]
         p_start = seg_start[ps]
         p_gcnt = g_cnt[ps]
+        if mean_id_ties:
+            # floor(sum_ids / count) per segment from one int64 prefix sum
+            # of the active rows' ids (exact: sums stay below 2^60)
+            ic = torch.cumsum(torch.where(active, pid, 0), dim=0)
+            mean_id = torch.div(at(ic, ends) - at(ic, seg_start),
+                                torch.clamp(g_cnt, min=1),
+                                rounding_mode="floor")
 
         # --- phase 2: per-row split value and the exact split plane (one
         # [N] cumsum of the chosen column)
@@ -149,8 +167,11 @@ def sorted_build(
         p_mid = mid[ps]
 
         local_rank = pos - p_start
-        # positional ties: lows get the first ceil(cnt/2) ranks
-        tie_high = 2 * local_rank >= p_gcnt + (p_gcnt & 1)
+        if mean_id_ties:
+            tie_high = pid > mean_id[ps]
+        else:
+            # positional ties: lows get the first ceil(cnt/2) ranks
+            tie_high = 2 * local_rank >= p_gcnt + (p_gcnt & 1)
         normal_high = (value > p_mid) | ((value == p_mid) & tie_high)
 
         is_low_n = active & ~normal_high
@@ -158,11 +179,16 @@ def sorted_build(
         cl_lo = at(cl, seg_start)
         lo_cnt = at(cl, ends) - cl_lo
         # zero-progress guard (fp edge: every row on one side) -> forced
-        # rank partition, like a degenerate segment
+        # tie partition, like a degenerate segment
         stuck = is_int & ((lo_cnt == 0) | (lo_cnt == g_cnt))
         degen_split = degenerate | stuck
-        half = (g_cnt + 1) // 2
-        lo_cnt = torch.where(degen_split, half, lo_cnt)
+        if mean_id_ties:
+            # tie-partitioned segments split purely by id: recount lows
+            cli = torch.cumsum((active & ~tie_high).to(torch.int64), dim=0)
+            cli_lo = at(cli, seg_start)
+            lo_cnt = torch.where(degen_split, at(cli, ends) - cli_lo, lo_cnt)
+        else:
+            lo_cnt = torch.where(degen_split, (g_cnt + 1) // 2, lo_cnt)
 
         # --- child numbering and boundaries
         ii = is_int.to(torch.int64)
@@ -195,15 +221,18 @@ def sorted_build(
         ))
 
         # --- phase 3: stable within-range partition (rank splits move
-        # no rows)
+        # no rows; id splits move rows like plane splits)
         p_locnt = lo_cnt[ps]
         p_degen = degen_split[ps]
         p_is_int = is_int[ps]
         p_rank = rank[ps]
-        p_cls = cl_lo[ps]
         go_high = torch.where(p_degen, tie_high, normal_high)
-        moving = active & p_is_int & ~p_degen
-        lows_upto = cl - p_cls  # inclusive lows in [start, i]
+        lows_upto = cl - cl_lo[ps]  # inclusive lows in [start, i]
+        if mean_id_ties:
+            moving = active & p_is_int
+            lows_upto = torch.where(p_degen, cli - cli_lo[ps], lows_upto)
+        else:
+            moving = active & p_is_int & ~p_degen
         dest_low = p_start + lows_upto - 1
         dest_high = p_start + p_locnt + local_rank - lows_upto
         dest = torch.where(moving, torch.where(go_high, dest_high, dest_low),

@@ -9,7 +9,8 @@ superset of leaves; the rerank computes exact distances over the leaf
 buckets and filters. PyTorch has no vmapped ``while_loop``, so the
 per-query DFS of the JAX package has no counterpart here: both
 ``traversal=`` values run the frontier walk, which reaches the same leaf
-set.
+set. ``locate`` is the exact-match lookup: one root-to-leaf path per
+query.
 """
 
 from __future__ import annotations
@@ -181,6 +182,85 @@ def search(
         cand_rows=cand_rows,
         overflow=ov,
     )
+
+
+def _descend(dim, mid, low, high, queries, *, depth, ties_high=False):
+    """Single-branch lockstep descent: each query follows one root-to-leaf
+    path, ``depth + 1`` steps of ``[Q]``-wide gathers. Returns ``(leaf
+    node id, saw_dual)`` per query; ``saw_dual`` marks a path that
+    crossed a dim == -2 node, where the single-branch choice is a guess.
+    ``ties_high`` routes ``q[dim] == mid`` high (trie exports), else low
+    (builder trees)."""
+    q = queries.shape[0]
+    dev = queries.device
+    low, high = low.to(torch.int64), high.to(torch.int64)
+    node = torch.zeros(q, dtype=torch.int64, device=dev)
+    saw_dual = torch.zeros(q, dtype=torch.bool, device=dev)
+    for _ in range(depth + 1):
+        d = dim[node].to(torch.int64)
+        m = mid[node]
+        qd = queries.gather(1, d.clamp(min=0)[:, None])[:, 0]
+        go_high = (qd >= m) if ties_high else (qd > m)
+        nxt = torch.where(go_high, high[node], low[node])
+        # a dual node has no separating plane: take the low child and
+        # report the guess, so the caller can fall back to the exact walk
+        nxt = torch.where(d == -2, low[node], nxt)
+        saw_dual = saw_dual | (d == -2)
+        node = torch.where(d == -1, node, nxt)
+    return node, saw_dual
+
+
+def _locate_in_leaf(leaf_start, leaf_count, vectors, orig_row, leaf,
+                    queries, *, leaf_cap):
+    """The original row of the first vector in ``leaf`` equal to each
+    query, or -1."""
+    start = leaf_start[leaf].to(torch.int64)
+    cnt = leaf_count[leaf]
+    k = torch.arange(leaf_cap, device=leaf.device)
+    rows = start[:, None] + k[None, :]  # [Q, K]
+    valid = k[None, :] < cnt[:, None]
+    rows = torch.where(valid, rows, 0)
+    eq = torch.all(vectors[rows] == queries[:, None, :], dim=-1) & valid
+    first = torch.argmax(eq.to(torch.uint8), dim=1)  # first True
+    hit = eq.gather(1, first[:, None])[:, 0]
+    found = rows.gather(1, first[:, None])[:, 0]
+    return torch.where(hit, orig_row[found].to(torch.int64), -1)
+
+
+def locate(index: BSPIndex, queries) -> torch.Tensor:
+    """Exact-match point lookup: the original row whose vector equals each
+    query, or -1 (``[Q]`` int64 on the index's device). One root-to-leaf
+    path per query plus an equality check in the reached leaf: the
+    ``radius=0`` fast path. A query whose path crossed a dual (dim == -2)
+    node and missed is re-run through the exact ``search(q, 0.0)``. On
+    builder trees a query coordinate exactly on a traversed plane may
+    still miss (the build routed such ties by id); ``split="max"`` trees
+    on boolean data and trie exports (``ties_high``) are exact."""
+    queries = atleast_2d(as_f32(queries, index.device))
+    leaf, saw_dual = _descend(
+        index.dim, index.mid, index.low, index.high, queries,
+        depth=index.depth, ties_high=index.ties_high,
+    )
+    rows = _locate_in_leaf(
+        index.leaf_start, index.leaf_count, index.vectors, index.orig_row,
+        leaf, queries, leaf_cap=index.leaf_cap,
+    )
+    # a miss below a dual node is inconclusive: exact fallback for those
+    miss = torch.nonzero(saw_dual & (rows < 0))[:, 0]
+    if miss.numel():
+        res = search(index, queries[miss], 0.0)
+        # the JAX package's DFS lists matches in leaf-major position
+        # order and takes the first; the frontier walk lists them in
+        # another order, so take the match at the lowest position
+        pos_of = torch.empty(index.n, dtype=torch.int64, device=index.device)
+        pos_of[index.orig_row.to(torch.int64)] = torch.arange(
+            index.n, device=index.device)
+        key = torch.where(res.rows >= 0, pos_of[res.rows.clamp(min=0)],
+                          index.n)
+        first = torch.argmin(key, dim=1)
+        found = res.rows.gather(1, first[:, None])[:, 0]
+        rows[miss] = torch.where(key.amin(dim=1) < index.n, found, -1)
+    return rows
 
 
 def calibrate_radius(
