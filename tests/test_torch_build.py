@@ -38,7 +38,8 @@ def test_integer_data_bitwise_equal(stats_subsample, split):
     rng = np.random.default_rng(7 + stats_subsample)
     v = rng.integers(-8, 9, (3000, 7)).astype(np.float32)
     kw = dict(leaf_size=4, stats_subsample=stats_subsample, split=split)
-    _assert_same_tree(build_index_fused(v, **kw), jax_build(v, **kw))
+    _assert_same_tree(build_index_fused(v, device="cpu", **kw),
+                      jax_build(v, **kw))
 
 
 @pytest.mark.parametrize("leaf_size,max_levels", [(1, None), (8, 5)])
@@ -49,7 +50,8 @@ def test_duplicates_and_depth_cap_bitwise_equal(leaf_size, max_levels):
     v = np.repeat(rng.integers(-3, 4, (40, 5)), 12, axis=0).astype(
         np.float32)
     kw = dict(leaf_size=leaf_size, max_levels=max_levels)
-    _assert_same_tree(build_index_fused(v, **kw), jax_build(v, **kw))
+    _assert_same_tree(build_index_fused(v, device="cpu", **kw),
+                      jax_build(v, **kw))
 
 
 @pytest.mark.parametrize("kw", [
@@ -65,7 +67,8 @@ def test_mean_id_ties_bitwise_equal(kw):
     rng = np.random.default_rng(17)
     v = np.repeat(rng.integers(-3, 4, (60, 5)), 7, axis=0).astype(np.float32)
     v = v[rng.permutation(v.shape[0])]
-    _assert_same_tree(build_index_fused(v, tie_break="mean_id", **kw),
+    _assert_same_tree(build_index_fused(v, device="cpu", tie_break="mean_id",
+                                        **kw),
                       jax_build(v, tie_break="mean_id", **kw))
 
 
@@ -86,9 +89,9 @@ def test_mean_id_row_bound_matches_jax():
 def test_float_data_search_equals_oracle():
     v = datasets.random_uniform(4000, 6, seed=21)
     q = datasets.random_uniform(16, 6, seed=22)
-    index = build_index_fused(v, leaf_size=8)
+    index = build_index_fused(v, device="cpu", leaf_size=8)
     res = search(index, q, 0.45)
-    ball = exact_ball(v, q, 0.45).numpy()
+    ball = exact_ball(torch.from_numpy(v), q, 0.45).numpy()
     for i in range(16):
         assert set(res.match_rows(i).tolist()) == \
             set(np.nonzero(ball[i])[0].tolist())
@@ -99,7 +102,7 @@ def test_npz_round_trip_between_packages(tmp_path):
     q = datasets.random_uniform(12, 5, seed=32)
     jidx = jax_build(v, leaf_size=4)
     jidx.save(str(tmp_path / "from_jax"))
-    tidx = BSPIndex.load(str(tmp_path / "from_jax"))
+    tidx = BSPIndex.load(str(tmp_path / "from_jax"), device="cpu")
     _assert_same_tree(tidx, jidx)
     from vector_database_tpu import search as jax_search
 
@@ -116,21 +119,21 @@ def test_npz_round_trip_between_packages(tmp_path):
 def test_argument_errors():
     v = datasets.random_uniform(100, 4, seed=1)
     # mean_id builds (it raised NotImplementedError before it was ported)
-    assert build_index_fused(v, tie_break="mean_id").n == 100
+    assert build_index_fused(v, device="cpu", tie_break="mean_id").n == 100
     with pytest.raises(ValueError, match="tie_break"):
-        build_index_fused(v, tie_break="median")
+        build_index_fused(v, device="cpu", tie_break="median")
     with pytest.raises(ValueError):
-        build_index_fused(v[:0])
+        build_index_fused(v[:0], device="cpu")
     with pytest.raises(ValueError):
-        build_index_fused(v, leaf_size=0)
+        build_index_fused(v, device="cpu", leaf_size=0)
     with pytest.raises(ValueError):
-        build_index_fused(v, split="min")
+        build_index_fused(v, device="cpu", split="min")
 
 
 def test_progress_callback():
     seen = []
     v = datasets.random_uniform(500, 4, seed=2)
-    index = build_index_fused(v, leaf_size=8,
+    index = build_index_fused(v, device="cpu", leaf_size=8,
                               progress=lambda *a: seen.append(a))
     assert seen[0] == (0, 1, 500)
     assert len(seen) == index.depth

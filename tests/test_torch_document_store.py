@@ -47,7 +47,7 @@ def test_workflow_matches_jax():
     rng = np.random.default_rng(6)
     v = rng.integers(-5, 6, (900, 6)).astype(np.float32)
     q = rng.integers(-5, 6, (16, 6)).astype(np.float32)
-    j, t = JaxStore(leaf_size=4), DocumentStore(leaf_size=4)
+    j, t = JaxStore(leaf_size=4), DocumentStore(leaf_size=4, device="cpu")
     _fill(j, v)
     _fill(t, v)
     j.index_document(1)
@@ -98,14 +98,15 @@ def test_saved_store_serves_the_same_answers(tmp_path, direction):
     rng = np.random.default_rng(8)
     v = rng.integers(-4, 5, (300, 8)).astype(np.float32)
     q = rng.integers(-4, 5, (10, 8)).astype(np.float32)
-    src_cls, dst_cls = ((JaxStore, DocumentStore)
-                        if direction == "jax_to_torch"
-                        else (DocumentStore, JaxStore))
-    src = src_cls(leaf_size=4)
+    cpu = dict(device="cpu")
+    src_cls, dst_cls, src_kw, dst_kw = (
+        (JaxStore, DocumentStore, {}, cpu) if direction == "jax_to_torch"
+        else (DocumentStore, JaxStore, cpu, {}))
+    src = src_cls(leaf_size=4, **src_kw)
     docs = _fill(src, v, docs=2)
     src.index_document(docs[0])  # doc 2 stays dirty: no index saved
     src.save(str(tmp_path / "store"))
-    dst = dst_cls.load(str(tmp_path / "store"))
+    dst = dst_cls.load(str(tmp_path / "store"), **dst_kw)
     assert dst._dims == (8,) and dst.documents == src.documents
     assert dst.get_text(docs[0], 5)[0] == src.get_text(docs[0], 5)[0]
     assert sorted(dst.search(q[0], 3.0, auto_index=False)) == \
@@ -117,7 +118,7 @@ def test_saved_store_serves_the_same_answers(tmp_path, direction):
 
 
 def test_float_data_against_brute_force():
-    store = DocumentStore(leaf_size=4)
+    store = DocumentStore(leaf_size=4, device="cpu")
     vecs = datasets.random_uniform(600, 8, seed=50)
     docs = _fill(store, vecs, docs=2)
     point = vecs[5]
@@ -147,7 +148,7 @@ def test_doc_slices_and_documents_in_the_delta():
     """The per-document slice cache stays LRU-bounded and serves right
     after evictions; a document created after the combined build is
     served from the delta alone."""
-    store = DocumentStore(leaf_size=4)
+    store = DocumentStore(leaf_size=4, device="cpu")
     docs = []
     for i in range(6):
         doc = store.create_document(f"d{i}")
@@ -170,7 +171,7 @@ def test_doc_slices_and_documents_in_the_delta():
 
 
 def test_errors_and_edges():
-    store = DocumentStore()
+    store = DocumentStore(device="cpu")
     a = store.create_document("a")
     store.add_text(a, [1.0, 2.0, 3.0])
     b = store.create_document("b")
@@ -196,7 +197,7 @@ def test_errors_and_edges():
 
 def test_min_probe_batch_guard():
     vecs = datasets.random_uniform(600, 10, seed=502)
-    store = DocumentStore()
+    store = DocumentStore(device="cpu")
     doc = store.create_document("d")
     for i, v in enumerate(vecs):
         store.add_text(doc, v, text_id=2000 + i)

@@ -37,7 +37,8 @@ def test_churn_sequence_matches_jax():
     v = _ints(rng, (2500, 8))
     q = _ints(rng, (24, 8))
     kw = dict(leaf_size=8, rebuild_fraction=0.05)
-    j, t = JaxDynamicIndex(v, **kw), DynamicIndex(v, **kw)
+    j = JaxDynamicIndex(v, **kw)
+    t = DynamicIndex(v, device="cpu", **kw)
     modes = [dict(), dict(exact=False), dict(packed=True),
              dict(packed=True, probes=1, q_tile=8), dict(radius=4.0)]
     for step in range(3):
@@ -76,7 +77,7 @@ def test_pack_identity_invariants():
     rng = np.random.default_rng(6)
     v = _ints(rng, (3000, 8))
     q = _ints(rng, (8, 8))
-    t = DynamicIndex(v, leaf_size=8, rebuild_fraction=10.0)
+    t = DynamicIndex(v, leaf_size=8, rebuild_fraction=10.0, device="cpu")
     j = JaxDynamicIndex(v, leaf_size=8, rebuild_fraction=10.0)
     mat, _, mask = t._main_view()
     assert mat is t._index.vectors and mask is None
@@ -120,7 +121,7 @@ def test_min_probe_batch_guard(monkeypatch):
 
     vecs = datasets.random_uniform(20000, 8, seed=421)
     queries = datasets.random_uniform(64, 8, seed=422)
-    index = DynamicIndex(vecs, leaf_size=16)
+    index = DynamicIndex(vecs, leaf_size=16, device="cpu")
     assert inspect.signature(index.knn).parameters[
         "min_probe_batch"].default is None
     full = index.knn(queries, k=5, packed=True)
@@ -158,14 +159,16 @@ def test_saved_index_serves_the_same_answers(tmp_path, direction):
     rng = np.random.default_rng(7)
     v = _ints(rng, (600, 5))
     q = _ints(rng, (12, 5))
-    src_cls, dst_cls = ((JaxDynamicIndex, DynamicIndex)
-                        if direction == "jax_to_torch"
-                        else (DynamicIndex, JaxDynamicIndex))
-    src = src_cls(v, leaf_size=4)
+    cpu = dict(device="cpu")
+    src_cls, dst_cls, src_kw, dst_kw = (
+        (JaxDynamicIndex, DynamicIndex, {}, cpu)
+        if direction == "jax_to_torch"
+        else (DynamicIndex, JaxDynamicIndex, cpu, {}))
+    src = src_cls(v, leaf_size=4, **src_kw)
     src.remove_ids(np.arange(0, 600, 7))
     src.add(_ints(rng, (10, 5)))  # pending delta: save compacts it
     src.save(str(tmp_path / "dyn"))
-    dst = dst_cls.load(str(tmp_path / "dyn"))
+    dst = dst_cls.load(str(tmp_path / "dyn"), **dst_kw)
     assert len(dst) == len(src)
     for mode in (dict(), dict(packed=True)):
         _equal(dst.knn(q, k=5, **mode), src.knn(q, k=5, **mode), mode)
@@ -178,7 +181,8 @@ def test_oracle_cycle_on_float_data():
     """Interleaved adds and removals (no compaction): exact k-NN and
     radius search equal a numpy oracle over the live rows at every step."""
     rng = np.random.default_rng(77)
-    index = DynamicIndex(leaf_size=4, rebuild_fraction=10.0)
+    index = DynamicIndex(leaf_size=4, rebuild_fraction=10.0,
+                         device="cpu")
     base = datasets.random_uniform(300, 5, seed=70)
     live = dict(zip(index.add(base).tolist(), base))
     index.compact()
@@ -214,13 +218,14 @@ def test_oracle_cycle_on_float_data():
 def test_small_cases():
     """Padding when k exceeds the live rows, removing everything, empty
     adds, and one build for a constructor plus a clean save."""
-    index = DynamicIndex(np.eye(3, dtype=np.float32), leaf_size=2)
+    index = DynamicIndex(np.eye(3, dtype=np.float32), leaf_size=2,
+                         device="cpu")
     index.remove_ids([1])
     ids, d2 = index.knn(np.zeros((1, 3), np.float32), k=4)
     assert (ids[0] >= 0).sum() == 2 and 1 not in ids[0].tolist()
     assert np.isinf(d2[0][ids[0] < 0]).all()
 
-    index = DynamicIndex()
+    index = DynamicIndex(device="cpu")
     assert index.search(np.zeros(3), 1.0)[0][0].size == 0
     assert index.add([]).size == 0 and index.dims is None
     index.add(np.ones((5, 3), np.float32))
@@ -240,7 +245,8 @@ def test_constructor_builds_once_and_clean_save_skips(tmp_path, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(dyn, "build_index_fused", counting)
-    index = DynamicIndex(datasets.random_uniform(200, 4, seed=50))
+    index = DynamicIndex(datasets.random_uniform(200, 4, seed=50),
+                         device="cpu")
     assert calls[0] == 1
     index.save(str(tmp_path / "ck"))
     assert calls[0] == 1
@@ -255,7 +261,7 @@ def test_exact_fallback_under_overflow(monkeypatch):
     import vector_database_tpu_torch.dynamic as dyn
 
     vecs = datasets.random_uniform(300, 4, seed=51)
-    index = DynamicIndex(vecs)
+    index = DynamicIndex(vecs, device="cpu")
     q, radius = vecs[7], 0.6
     truth = np.nonzero(((vecs - q) ** 2).sum(1) <= radius * radius)[0]
     assert truth.size > 3
@@ -278,7 +284,7 @@ def test_exact_fallback_under_overflow(monkeypatch):
 
 def test_allowed_ids_reach_the_delta():
     vecs = datasets.random_uniform(600, 5, seed=189)
-    dyn = DynamicIndex(vecs[:500], leaf_size=8)
+    dyn = DynamicIndex(vecs[:500], leaf_size=8, device="cpu")
     extra = dyn.add(vecs[500:])
     allowed = np.asarray([3, 77, int(extra[10])])
     ids, _ = dyn.knn(vecs[[3, 510]], k=2, allowed_ids=allowed)

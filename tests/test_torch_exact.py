@@ -3,7 +3,8 @@
 Tolerances: distances are f32 sums over D taken in another order (and
 JAX's matmul form at HIGHEST precision vs torch's full-f32 product), so
 they agree to rtol 1e-5 / atol 1e-5; indices and ball sets are equal on
-tie-free random data.
+tie-free random data. Host data goes to the port as CPU tensors: with
+no tensor and no ``device`` its entry points target the card.
 """
 
 import numpy as np
@@ -34,7 +35,8 @@ def test_distance_matrices(fn):
 def test_exact_ball(use_matmul):
     v, q = _data()
     want = np.asarray(jx.exact_ball(v, q, 0.9, use_matmul=use_matmul))
-    got = tx.exact_ball(v, q, 0.9, use_matmul=use_matmul).numpy()
+    got = tx.exact_ball(torch.from_numpy(v), q, 0.9,
+                        use_matmul=use_matmul).numpy()
     # boundary points could flip on a last-ulp difference: none here
     np.testing.assert_array_equal(got, want)
 
@@ -43,7 +45,7 @@ def test_exact_ball(use_matmul):
 def test_exact_knn(k, block):
     v, q = _data(n=2000)
     ji, jd = jx.exact_knn(v, q, k=k, block=block)
-    ti, td = tx.exact_knn(v, q, k=k, block=block)
+    ti, td = tx.exact_knn(torch.from_numpy(v), q, k=k, block=block)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
                                atol=1e-5)
@@ -51,7 +53,7 @@ def test_exact_knn(k, block):
 
 def test_exact_knn_k_exceeds_n():
     v, q = _data(n=4, q=3)
-    ti, td = tx.exact_knn(v, q, k=6)
+    ti, td = tx.exact_knn(torch.from_numpy(v), q, k=6)
     ji, jd = jx.exact_knn(v, q, k=6)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     assert np.isinf(td.numpy()[:, 4:]).all()
@@ -65,7 +67,7 @@ def test_exact_mips(k):
     if k > 8:
         v = v[:8]  # k > n pads with -1 / -inf
     ji, jd = jx.exact_mips(v, q, k=k)
-    ti, td = tx.exact_mips(v, q, k=k)
+    ti, td = tx.exact_mips(torch.from_numpy(v), q, k=k)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
                                atol=1e-5)
@@ -74,8 +76,8 @@ def test_exact_mips(k):
 def test_normalize_rows():
     v, _ = _data()
     v[3] = 0.0  # zero rows stay zero
-    np.testing.assert_allclose(tx.normalize_rows(v).numpy(),
-                               np.asarray(jx.normalize_rows(v)),
+    got = tx.normalize_rows(torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jx.normalize_rows(v)),
                                rtol=1e-6, atol=1e-7)
 
 

@@ -48,7 +48,7 @@ def _port_pack(jpack):
         arrays.update(cent=np.asarray(jpack.cent), rad=np.asarray(jpack.rad))
     return tpk.PackedDB.from_numpy(arrays, dict(
         n=jpack.n, block=jpack.block, m=jpack.m, bits=jpack.bits,
-        sq=jpack.sq, metric=jpack.metric))
+        sq=jpack.sq, metric=jpack.metric), device="cpu")
 
 
 def _padded(queries, q_tile, d_pad):
@@ -73,7 +73,7 @@ def test_int8_packs_match_jax(dtype, data):
     kw = dict(block=256, buckets=128, dtype=dtype, metric=metric,
               d_align=16)
     j = jpk.pack_database(v, **kw)
-    t = tpk.pack_database(v, **kw)
+    t = tpk.pack_database(v, device="cpu", **kw)
     assert (t.n, t.block, t.m, t.bits) == (j.n, j.block, j.m, j.bits)
     assert t.vb.shape == (4, 32, 256) and t.vb.dtype == torch.int8
     assert t.sq == j.sq
@@ -156,14 +156,14 @@ def test_pallas_scan_knn_int8_matches_jax(dtype):
     vecs, queries = _clustered(47, 16384, 32, 64, 8)
     kw = dict(k=10, block=1024, q_tile=8, dtype=dtype)
     jr, jd = jpk.pallas_scan_knn(vecs, queries, **kw)
-    tr, td = tpk.pallas_scan_knn(vecs, queries, **kw)
+    tr, td = tpk.pallas_scan_knn(vecs, queries, device="cpu", **kw)
     if dtype == "int8":  # exact integer selection: the same rows
         for a, b in zip(tr.numpy(), np.asarray(jr)):
             assert set(a.tolist()) == set(b.tolist())
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
                                    atol=1e-6)
     jpack = jpk.pack_database(vecs, block=1024, dtype=dtype)
-    pack = tpk.pack_database(vecs, block=1024, dtype=dtype)
+    pack = tpk.pack_database(vecs, block=1024, dtype=dtype, device="cpu")
     jc = np.asarray(jpk.pallas_scan_knn_candidates(jpack, queries, k=10,
                                                    q_tile=8))
     tc = tpk.pallas_scan_knn_candidates(pack, queries, k=10, q_tile=8)
@@ -181,7 +181,7 @@ def test_calibrate_probes_int8f_matches_jax():
     kw = dict(block=1024, buckets=512, dtype="int8f")
     want = jpk.calibrate_probes(jpk.pack_database(lm, **kw), qs, k=10,
                                 target_recall=0.9, q_tile=64)
-    pack = tpk.pack_database(lm, **kw)
+    pack = tpk.pack_database(lm, device="cpu", **kw)
     got = tpk.calibrate_probes(pack, qs, k=10, target_recall=0.9, q_tile=64)
     assert got == want
     assert 1 <= got < pack.vb.shape[0]
@@ -191,12 +191,13 @@ def test_calibrate_probes_int8f_matches_jax():
 def test_packed_server_over_int8_packs(dtype):
     vecs, qs = _clustered(3, 6000, 8, 24, 40)
     kw = dict(block=512, buckets=128, dtype=dtype)
-    pack = tpk.pack_database(vecs, **kw)
+    pack = tpk.pack_database(vecs, device="cpu", **kw)
     srv = PackedServer(pack, k=5, batch=16, q_tile=16)
     rows, d2 = srv.query(qs)  # three waves, the last one padded
     want_r, want_d = tpk.pallas_scan_knn_packed(pack, qs, k=5, q_tile=16)
     assert torch.equal(rows, want_r) and torch.equal(d2, want_d)
-    built = PackedServer.from_vectors(vecs, k=5, batch=16, q_tile=16, **kw)
+    built = PackedServer.from_vectors(vecs, k=5, batch=16, q_tile=16,
+                                      device="cpu", **kw)
     assert torch.equal(built.query(qs)[0], rows)
     jr, _ = JaxServer(jpk.pack_database(vecs, **kw), k=5, batch=16,
                       q_tile=16).query(qs)

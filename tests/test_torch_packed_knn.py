@@ -79,6 +79,7 @@ def _port_pack(jpack):
              rad=np.asarray(jpack.rad)),
         dict(n=jpack.n, block=jpack.block, m=jpack.m, bits=jpack.bits,
              metric=jpack.metric),
+        device="cpu",
     )
 
 
@@ -95,7 +96,7 @@ def test_pack_matches_jax(n, d, block, buckets, rows_valid, metric):
     j = jpk.pack_database(v, block=block, buckets=buckets, metric=metric,
                           rows_valid=rows_valid)
     t = tpk.pack_database(v, block=block, buckets=buckets, metric=metric,
-                          rows_valid=rows_valid)
+                          rows_valid=rows_valid, device="cpu")
     assert (t.n, t.block, t.m, t.bits) == (j.n, j.block, j.m, j.bits)
     np.testing.assert_array_equal(
         t.vb.view(torch.int16).numpy(),
@@ -170,7 +171,7 @@ def test_full_scan_matches_jax_results():
     jr, jd = jpk.pallas_scan_knn(vecs, queries, k=10, block=1024, q_tile=8,
                                  oversample=8)
     tr, td = tpk.pallas_scan_knn(vecs, queries, k=10, block=1024, q_tile=8,
-                                 oversample=8)
+                                 oversample=8, device="cpu")
     for a, b in zip(tr.numpy(), np.asarray(jr)):
         assert set(a.tolist()) == set(b.tolist())
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
@@ -184,8 +185,8 @@ def test_small_database_equals_exact_oracle():
     rng = np.random.RandomState(42)
     vecs = rng.rand(4000, 24).astype(np.float32) * 2 - 1
     qs = rng.rand(64, 24).astype(np.float32) * 2 - 1
-    rows, d2 = tpk.pallas_scan_knn(vecs, qs, k=5)
-    erows, ed2 = exact_knn(vecs, qs, k=5)
+    rows, d2 = tpk.pallas_scan_knn(vecs, qs, k=5, device="cpu")
+    erows, ed2 = exact_knn(torch.from_numpy(vecs), qs, k=5)
     for a, b in zip(rows.tolist(), erows.tolist()):
         assert set(a) == set(b)
     np.testing.assert_allclose(np.sort(d2.numpy(), 1),
@@ -195,7 +196,7 @@ def test_small_database_equals_exact_oracle():
 def test_probes_full_coverage_equals_full_scan():
     vecs = datasets.random_uniform(3000, 12, seed=150)
     queries = datasets.random_uniform(37, 12, seed=151)
-    pack = tpk.pack_database(vecs, block=512, buckets=128)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, device="cpu")
     nb = pack.vb.shape[0]
     fr, fd = tpk.pallas_scan_knn_packed(pack, queries, k=4, q_tile=8)
     # static probes >= nb is the full scan; the rt path with probes_max=nb
@@ -213,7 +214,7 @@ def test_pruned_exact_via_sentinel_block():
     vecs = datasets.random_uniform(1024, 16, seed=160)
     padded = np.concatenate([vecs, np.full((256, 16), np.inf, np.float32)])
     pack = tpk.pack_database(padded, block=256, buckets=128,
-                             rows_valid=1024)
+                             rows_valid=1024, device="cpu")
     nb = pack.vb.shape[0]
     assert nb == 5
     queries = datasets.random_uniform(50, 16, seed=161)
@@ -225,7 +226,7 @@ def test_pruned_exact_via_sentinel_block():
 
 def test_runtime_probes_matches_static():
     vecs, queries = _clustered(23, 8000, 8, 32, 64)
-    pack = tpk.pack_database(vecs, block=512, buckets=128)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, device="cpu")
     nb = pack.vb.shape[0]
     for p in (1, 3, nb // 2, nb):
         sr, sd = tpk.pallas_scan_knn_packed(pack, queries, k=5, q_tile=16,
@@ -243,7 +244,7 @@ def test_probes_max_keyword_is_the_runtime_entry():
     """``pallas_scan_knn_packed(probes=p, probes_max=w)`` is the
     runtime-probes call, as in the JAX package's jitted entry."""
     vecs, queries = _clustered(23, 8000, 8, 32, 64)
-    pack = tpk.pack_database(vecs, block=512, buckets=128)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, device="cpu")
     for p in (2, 5):
         got = tpk.pallas_scan_knn_packed(pack, queries, k=5, q_tile=16,
                                          probes=p, probes_max=6)
@@ -260,7 +261,7 @@ def test_calibrate_probes_matches_jax():
 
     lm = np.asarray(build_index_fused(vecs, leaf_size=16).vectors)
     jpack = jpk.pack_database(lm, block=1024, buckets=512)
-    pack = tpk.pack_database(lm, block=1024, buckets=512)
+    pack = tpk.pack_database(lm, block=1024, buckets=512, device="cpu")
     want = jpk.calibrate_probes(jpack, qs, k=10, target_recall=0.9,
                                 q_tile=64)
     got = tpk.calibrate_probes(pack, qs, k=10, target_recall=0.9, q_tile=64)
@@ -277,7 +278,7 @@ def test_metrics_match_jax(metric):
     jr, js = jpk.pallas_scan_knn(vecs, queries, k=5, block=512, q_tile=8,
                                  metric=metric)
     tr, ts = tpk.pallas_scan_knn(vecs, queries, k=5, block=512, q_tile=8,
-                                 metric=metric)
+                                 metric=metric, device="cpu")
     for a, b in zip(tr.numpy(), np.asarray(jr)):
         assert set(a.tolist()) == set(b.tolist())
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
@@ -290,18 +291,19 @@ def test_errors():
     vecs = datasets.random_uniform(2000, 8, seed=152)
     with pytest.raises(ValueError, match="empty"):
         tpk.pack_database(np.zeros((0, 8), np.float32), block=256,
-                          buckets=64)
+                          buckets=64, device="cpu")
     for dtype in ("int8", "int8f"):
         with pytest.raises(ValueError, match="ip"):
             tpk.pack_database(vecs, block=256, buckets=128, dtype=dtype,
-                              metric="ip")
+                              metric="ip", device="cpu")
         with pytest.raises(ValueError, match="rows_valid"):
             tpk.pack_database(vecs, block=256, buckets=128, dtype=dtype,
-                              rows_valid=1000)
-    i8 = tpk.pack_database(vecs, block=256, buckets=128, dtype="int8")
+                              rows_valid=1000, device="cpu")
+    i8 = tpk.pack_database(vecs, block=256, buckets=128, dtype="int8",
+                           device="cpu")
     with pytest.raises(ValueError, match="bfloat16"):
         tpk.pallas_scan_knn_packed(i8, vecs[:8], k=3, q_tile=8, probes=2)
-    pack = tpk.pack_database(vecs, block=256, buckets=128)
+    pack = tpk.pack_database(vecs, block=256, buckets=128, device="cpu")
     import dataclasses
 
     bare = dataclasses.replace(pack, cent=None, rad=None)
@@ -327,7 +329,7 @@ def test_wrapper_uses_plain_version_only_on_cpu():
 def test_candidates_match_jax_and_contain_results():
     vecs, queries = _clustered(29, 6000, 8, 16, 24)
     jpack = jpk.pack_database(vecs, block=512, buckets=128)
-    pack = tpk.pack_database(vecs, block=512, buckets=128)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, device="cpu")
     jc = np.asarray(jpk.pallas_scan_knn_candidates(jpack, queries, k=5,
                                                    q_tile=8))
     tc = tpk.pallas_scan_knn_candidates(pack, queries, k=5, q_tile=8)
@@ -374,7 +376,8 @@ def test_masked_packed_knn_matches_jax(dtype, probes):
     vecs, queries = _int_data(173, 4000, 8, 40)
     alive = np.random.default_rng(174).random(4000) >= 0.2
     jpack = jpk.pack_database(vecs, block=512, buckets=128, dtype=dtype)
-    pack = tpk.pack_database(vecs, block=512, buckets=128, dtype=dtype)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, dtype=dtype,
+                             device="cpu")
     kw = dict(k=6, q_tile=8, probes=probes)
     jr, jd = jpk.pallas_scan_knn_packed(jpack.mask_rows(alive), queries,
                                         row_mask=alive, **kw)
@@ -409,7 +412,7 @@ def test_row_mask_keeps_dead_bucket_mates_out():
     vecs = datasets.random_uniform(2000, 10, seed=175)
     queries = datasets.random_uniform(24, 10, seed=176)
     alive = np.random.default_rng(177).random(2000) >= 0.3
-    pack = tpk.pack_database(vecs, block=512, buckets=128)
+    pack = tpk.pack_database(vecs, block=512, buckets=128, device="cpu")
     for p in (pack, pack.mask_rows(alive)):
         rows, _ = tpk.pallas_scan_knn_packed(p, queries, k=5, q_tile=8,
                                              row_mask=alive)
@@ -419,11 +422,11 @@ def test_row_mask_keeps_dead_bucket_mates_out():
                                          k=5, q_tile=8)
     got = rows.numpy()
     assert not alive[got[got >= 0]].all()  # bucket-mates without row_mask
-    one = tpk.pack_database(vecs, block=512, buckets=512)
+    one = tpk.pack_database(vecs, block=512, buckets=512, device="cpu")
     live = np.nonzero(alive)[0]
     rows, d2 = tpk.pallas_scan_knn_packed(one.mask_rows(alive), queries,
                                           k=5, q_tile=8)
-    erows, ed2 = exact_knn(vecs[live], queries, k=5)
+    erows, ed2 = exact_knn(torch.from_numpy(vecs[live]), queries, k=5)
     for a, b in zip(rows.tolist(), erows.tolist()):
         assert set(a) == set(live[b].tolist())
     np.testing.assert_allclose(d2.numpy(), ed2.numpy(), rtol=1e-4, atol=1e-5)
@@ -432,7 +435,8 @@ def test_row_mask_keeps_dead_bucket_mates_out():
 def test_mask_rows_rejects_pure_int8():
     vecs = datasets.random_uniform(600, 8, seed=178)
     alive = np.ones(600, bool)
-    for pkg in (jpk, tpk):
-        i8 = pkg.pack_database(vecs, block=256, buckets=128, dtype="int8")
+    for pkg, kw in ((jpk, {}), (tpk, dict(device="cpu"))):
+        i8 = pkg.pack_database(vecs, block=256, buckets=128, dtype="int8",
+                               **kw)
         with pytest.raises(ValueError, match="mask_rows"):
             i8.mask_rows(alive)

@@ -22,6 +22,9 @@ from vector_database_tpu_torch import exact_knn, scan_knn
 from vector_database_tpu_torch.utils import datasets
 
 torch.set_num_threads(2)
+# host data reaches the port as CPU tensors: with no tensor and no
+# ``device`` its entry points target the card
+_cpu = torch.from_numpy
 
 
 def _ints(seed, n, q, d=8, span=4):
@@ -53,7 +56,7 @@ def test_integer_data_equals_jax(precise, kw):
     if frac is not None:
         kw["row_mask"] = np.random.default_rng(12).random(3000) < frac
     want = jax_scan_knn(v, q, precise=precise, **kw)
-    got = scan_knn(v, q, precise=precise, **kw)
+    got = scan_knn(_cpu(v), q, precise=precise, **kw)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
@@ -64,8 +67,8 @@ def test_row_mask_matches_filtered_oracle(precise):
     queries = datasets.random_uniform(16, 8, seed=181)
     mask = np.random.RandomState(182).rand(3000) < 0.3
     want_r, want_d = _filtered_oracle(vecs, queries, mask, 5)
-    rows, d2 = scan_knn(vecs, queries, k=5, precise=precise, row_mask=mask,
-                        block=1024)
+    rows, d2 = scan_knn(_cpu(vecs), queries, k=5, precise=precise,
+                        row_mask=mask, block=1024)
     rows, d2 = rows.numpy(), d2.numpy()
     for i in range(16):
         assert set(rows[i].tolist()) == set(want_r[i].tolist())
@@ -77,8 +80,8 @@ def test_row_mask_matches_filtered_oracle(precise):
 def test_precise_float_data_matches_oracle_and_jax():
     vecs = datasets.random_uniform(5000, 16, seed=100)
     queries = datasets.random_uniform(8, 16, seed=101)
-    rows, d2 = scan_knn(vecs, queries, k=10, block=1024, precise=True)
-    erows, ed2 = exact_knn(vecs, queries, k=10)
+    rows, d2 = scan_knn(_cpu(vecs), queries, k=10, block=1024, precise=True)
+    erows, ed2 = exact_knn(_cpu(vecs), queries, k=10)
     jrows, _ = jax_scan_knn(vecs, queries, k=10, block=1024, precise=True)
     np.testing.assert_allclose(np.sort(d2.numpy(), 1),
                                np.sort(ed2.numpy(), 1), rtol=1e-4, atol=1e-5)
@@ -95,13 +98,13 @@ def test_selective_mask_and_bucket_collision():
     queries = datasets.random_uniform(4, 6, seed=184)
     mask = np.zeros(4000, bool)
     mask[[5, 1999, 3777]] = True
-    rows, _ = scan_knn(vecs, queries, k=3, row_mask=mask, block=512,
+    rows, _ = scan_knn(_cpu(vecs), queries, k=3, row_mask=mask, block=512,
                        precise=True)
     for i in range(4):
         assert set(rows[i].tolist()) == {5, 1999, 3777}
     pair = np.zeros(4000, bool)
     pair[[5, 261]] = True  # columns 5 and 261 share bucket 5 of block 0
-    rows, _ = scan_knn(vecs, vecs[[5]], k=2, row_mask=pair, block=512,
+    rows, _ = scan_knn(_cpu(vecs), vecs[[5]], k=2, row_mask=pair, block=512,
                        buckets=256, precise=True)
     assert set(rows[0].tolist()) == {5, 261}
 
@@ -114,17 +117,17 @@ def test_similarity_sorted_layout_and_separated_recall():
     centers = (rng.random((16, 16)) * 2 - 1).astype(np.float32)
     vecs = np.concatenate([c + rng.normal(0, 0.1, (256, 16)).astype(
         np.float32) for c in centers])
-    rows, _ = scan_knn(vecs, centers[:4], k=10, block=1024, buckets=128,
+    rows, _ = scan_knn(_cpu(vecs), centers[:4], k=10, block=1024, buckets=128,
                        oversample=16)
-    erows, _ = exact_knn(vecs, centers[:4], k=10)
+    erows, _ = exact_knn(_cpu(vecs), centers[:4], k=10)
     for i in range(4):
         assert len(set(rows[i].tolist()) & set(erows[i].tolist())) >= 8
     rng = np.random.default_rng(105)
     centers = (rng.random((20, 32)) * 2 - 1).astype(np.float32)
     vecs = np.concatenate([c + rng.normal(0, 0.01, (50, 32)).astype(
         np.float32) for c in centers])
-    rows, d2 = scan_knn(vecs, centers[:4], k=10, block=256, oversample=8)
-    erows, ed2 = exact_knn(vecs, centers[:4], k=10)
+    rows, d2 = scan_knn(_cpu(vecs), centers[:4], k=10, block=256, oversample=8)
+    erows, ed2 = exact_knn(_cpu(vecs), centers[:4], k=10)
     for i in range(4):
         assert set(rows[i].tolist()) == set(erows[i].tolist())
     np.testing.assert_allclose(d2[0].numpy(), ed2[0].numpy(), rtol=1e-3,
@@ -133,7 +136,8 @@ def test_similarity_sorted_layout_and_separated_recall():
 
 def test_padding_small_n_and_errors():
     vecs = datasets.random_uniform(1037, 8, seed=102)  # not block-aligned
-    rows, d2 = scan_knn(vecs, vecs[[3, 999]], k=1, block=256, precise=True)
+    rows, d2 = scan_knn(_cpu(vecs), vecs[[3, 999]], k=1, block=256,
+                        precise=True)
     assert rows[:, 0].tolist() == [3, 999]
     assert (rows < 1037).all()
     np.testing.assert_allclose(d2[:, 0].numpy(), 0.0, atol=1e-5)
@@ -141,7 +145,7 @@ def test_padding_small_n_and_errors():
     rng = np.random.RandomState(77)
     v = rng.rand(6, 16).astype(np.float32) * 2 - 1
     q = rng.rand(3, 16).astype(np.float32) * 2 - 1
-    rows, d2 = scan_knn(v, q, k=10)
+    rows, d2 = scan_knn(_cpu(v), q, k=10)
     rows, d2 = rows.numpy(), d2.numpy()
     for i in range(3):
         got = rows[i][rows[i] >= 0]
@@ -149,6 +153,6 @@ def test_padding_small_n_and_errors():
         np.testing.assert_allclose(d2[i][:6], ((v[got] - q[i]) ** 2).sum(1),
                                    rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="row_mask"):
-        scan_knn(vecs, vecs[:2], k=2, row_mask=np.ones(1036, bool))
+        scan_knn(_cpu(vecs), vecs[:2], k=2, row_mask=np.ones(1036, bool))
     with pytest.raises(ValueError, match="multiple of buckets"):
-        scan_knn(vecs, vecs[:2], k=2, block=300, buckets=256)
+        scan_knn(_cpu(vecs), vecs[:2], k=2, block=300, buckets=256)

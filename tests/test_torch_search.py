@@ -39,7 +39,7 @@ def _pair(n=3000, d=4, leaf=8, seed=41):
         "dim", "mid", "low", "high", "leaf_start", "leaf_count", "vectors",
         "orig_row")}
     tidx = BSPIndex.from_numpy(
-        arrays, [jidx.depth, jidx.leaf_cap, jidx.num_leaves])
+        arrays, [jidx.depth, jidx.leaf_cap, jidx.num_leaves], device="cpu")
     return v, jidx, tidx
 
 
@@ -70,7 +70,7 @@ def test_search_matches_jax_and_oracle(traversal):
     q = datasets.random_uniform(16, 4, seed=43)
     jres = jsearch.search(jidx, q, 0.35)
     tres = search(tidx, q, 0.35, traversal=traversal)
-    ball = exact_ball(v, q, 0.35).numpy()
+    ball = exact_ball(torch.from_numpy(v), q, 0.35).numpy()
     for i in range(16):
         got = set(tres.match_rows(i).tolist())
         assert got == set(jres.match_rows(i).tolist())
@@ -86,7 +86,7 @@ def test_auto_grow_from_a_tiny_leaf_buffer():
     q = datasets.random_uniform(8, 4, seed=44)
     res = search(tidx, q, 0.6, max_leaves=2)
     assert not res.overflow.any()
-    ball = exact_ball(v, q, 0.6).numpy()
+    ball = exact_ball(torch.from_numpy(v), q, 0.6).numpy()
     for i in range(8):
         assert set(res.match_rows(i).tolist()) == \
             set(np.nonzero(ball[i])[0].tolist())
@@ -102,7 +102,7 @@ def test_knn_matches_jax_and_oracle():
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
                                atol=1e-6)
-    er, _ = exact_knn(v, q, k=5)
+    er, _ = exact_knn(torch.from_numpy(v), q, k=5)
     for i in range(16):
         if np.isfinite(td[i].numpy()).all():
             assert set(tr[i].tolist()) == set(er[i].tolist())
@@ -126,7 +126,7 @@ def test_calibrate_radius_and_auto_radius_knn():
     v, jidx, tidx = _pair()
     q = datasets.random_uniform(32, 4, seed=47)
     jr = jsearch.calibrate_radius(v, q, 5)
-    tr = tsearch.calibrate_radius(v, q, 5)
+    tr = tsearch.calibrate_radius(torch.from_numpy(v), q, 5)
     assert tr == pytest.approx(jr, rel=1e-5)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -152,7 +152,7 @@ def test_locate_matches_jax(kw):
         rng.integers(-2, 3, (20, 4)).astype(np.float32) + 0.5,
         rng.integers(-2, 3, (20, 4)).astype(np.float32),
     ])
-    jidx, tidx = jax_build(v, **kw), build_index_fused(v, **kw)
+    jidx, tidx = jax_build(v, **kw), build_index_fused(v, device="cpu", **kw)
     jl, jd = jsearch._descend(jidx.dim, jidx.mid, jidx.low, jidx.high, q,
                               depth=jidx.depth)
     tl, td = tsearch._descend(tidx.dim, tidx.mid, tidx.low, tidx.high,
@@ -173,7 +173,7 @@ def test_locate_fallback_below_a_dual_node():
     """A zero-variance split dimension makes a dual node whose low guess
     misses: the exact fallback finds the row."""
     v = np.array([[0, 0], [0, 1], [0, 2], [0, 3]], np.float32)
-    idx = build_index_fused(v, leaf_size=1, split="alternate")
+    idx = build_index_fused(v, leaf_size=1, split="alternate", device="cpu")
     rows = tsearch.locate(idx, v)
     np.testing.assert_array_equal(rows.numpy(), [0, 1, 2, 3])
     want = np.asarray(jsearch.locate(jax_build(v, leaf_size=1), v))

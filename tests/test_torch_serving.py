@@ -37,7 +37,7 @@ def _clustered(seed, n=6000, d=8, c=24, q=100, sigma=0.05):
 @pytest.fixture(scope="module")
 def pack_and_queries():
     vecs, qs = _clustered(3)
-    return pack_database(vecs, block=512, buckets=128), qs
+    return pack_database(vecs, block=512, buckets=128, device="cpu"), qs
 
 
 @pytest.mark.parametrize("q", [0, 1, 7, 16, 37])
@@ -89,13 +89,14 @@ def test_from_vectors_splits_serve_keywords(pack_and_queries):
     vecs, _ = _clustered(3)
     srv = PackedServer.from_vectors(vecs, k=5, batch=32, block=512,
                                     buckets=128, q_tile=16, probes=2,
-                                    probes_max=4, min_probe_batch=32)
+                                    probes_max=4, min_probe_batch=32,
+                                    device="cpu")
     assert srv._pack.block == 512 and srv._pack.m == 128
     want = PackedServer(pack, k=5, batch=32, q_tile=16, probes=2,
                         probes_max=4, min_probe_batch=32)
     assert torch.equal(srv.query(qs[:40])[0], want.query(qs[:40])[0])
     with pytest.raises(TypeError):
-        PackedServer.from_vectors(vecs, k=5, bogus=1)
+        PackedServer.from_vectors(vecs, k=5, bogus=1, device="cpu")
 
 
 def test_server_defaults_match_jax(pack_and_queries):
@@ -120,23 +121,25 @@ def test_build_pack_serve_matches_jax_chain(probes):
     vecs, qs = _clustered(17, n=8000, d=8, c=32, q=64)
     kw = dict(block=512, buckets=128)
     jidx = jax_build(vecs, leaf_size=16)
-    tidx = build_index_fused(vecs, leaf_size=16)
+    tidx = build_index_fused(vecs, leaf_size=16, device="cpu")
     jorig, torig = np.asarray(jidx.orig_row), tidx.orig_row.numpy()
     jr, _ = JaxServer(jpk.pack_database(jidx.vectors, **kw), k=10, batch=64,
                       probes=probes).query(qs)
     want = _ids(jr, jorig)
 
-    shared = PackedServer(pack_database(np.asarray(jidx.vectors), **kw),
+    shared = PackedServer(pack_database(np.asarray(jidx.vectors),
+                                        device="cpu", **kw),
                           k=10, batch=64, probes=probes)
     assert _ids(shared.query(qs)[0], jorig) == want
 
-    tsrv = PackedServer(pack_database(tidx.vectors, **kw), k=10, batch=64,
-                        probes=probes)
+    tsrv = PackedServer(pack_database(tidx.vectors, device="cpu", **kw),
+                        k=10, batch=64, probes=probes)
     tr, td = tsrv.query(qs)
     got = _ids(tr, torig)
     agree = sum(len(a & b) for a, b in zip(got, want)) / (10 * len(qs))
     assert agree >= 0.97
-    truth = [set(r) for r in exact_knn(vecs, qs, k=10)[0].tolist()]
+    truth = [set(r) for r in
+             exact_knn(torch.from_numpy(vecs), qs, k=10)[0].tolist()]
 
     def recall(ids):
         return sum(len(a & t) for a, t in zip(ids, truth)) / (10 * len(qs))

@@ -29,7 +29,9 @@ The ported slices are the main path and the int8 capacity path:
   the reference's ``tie_break="mean_id"`` build.
 
 Tensors stay on the device they are given (or the ``device=`` argument);
-on CPU tensors each kernel's plain torch version runs instead.
+host data with no ``device=`` goes to the card (``cuda``), as the JAX
+package puts it on its default device (``utils/device.py``). On CPU
+tensors each kernel's plain torch version runs instead.
 """
 
 from vector_database_tpu_torch.builder import build_index_fused

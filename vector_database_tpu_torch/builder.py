@@ -34,7 +34,7 @@ def build_index_fused(
     device=None,
 ) -> BSPIndex:
     """Build a variance-split BSP index over ``vectors`` (``[N, D]``, cast
-    to float32, on ``device`` or where the tensor lies).
+    to float32, on ``device``, else where a tensor lies, else the card).
 
     ``leaf_size``: stop splitting ranges at this size (1 = the reference's
     singleton leaves). ``max_levels``: optional depth cap; remaining ranges

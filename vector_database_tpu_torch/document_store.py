@@ -35,6 +35,7 @@ from vector_database_tpu_torch.ops.packed_knn import (
 )
 from vector_database_tpu_torch.ops.scan_knn import scan_knn
 from vector_database_tpu_torch.search import search as bsp_search
+from vector_database_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -51,10 +52,11 @@ class _Document:
 class DocumentStore:
     """Documents -> texts (with vectors) -> per-document BSP indexes.
 
-    ``device``: where indexes and serving tensors live (default CPU)."""
+    ``device``: where indexes and serving tensors live (default: the
+    card, ``cuda``)."""
 
     def __init__(self, leaf_size: int = 8, *, device=None):
-        self._device = torch.device(device or "cpu")
+        self._device = resolve_device(device)
         self._docs: Dict[int, _Document] = {}
         self._next_doc = 1
         self._next_text = 1
@@ -472,7 +474,8 @@ class DocumentStore:
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "DocumentStore":
-        """Load a store written by either package's ``save``."""
+        """Load a store written by either package's ``save``, onto
+        ``device`` (default: the card, ``cuda``)."""
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         store = cls(leaf_size=manifest["leaf_size"], device=device)

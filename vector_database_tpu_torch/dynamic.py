@@ -40,6 +40,7 @@ from vector_database_tpu_torch.ops.packed_knn import (
 )
 from vector_database_tpu_torch.ops.scan_knn import scan_knn
 from vector_database_tpu_torch.search import search as bsp_search
+from vector_database_tpu_torch.utils.device import resolve_device
 
 
 def exact_d2_blocked(queries, vectors: torch.Tensor) -> np.ndarray:
@@ -62,7 +63,7 @@ class DynamicIndex:
     """Mutable exact epsilon-ball / k-NN index with stable integer ids.
 
     ``device``: where the index's tensors live (default: the device of a
-    ``vectors`` tensor, else the CPU)."""
+    ``vectors`` tensor, else the card, ``cuda``)."""
 
     def __init__(
         self,
@@ -72,10 +73,7 @@ class DynamicIndex:
         rebuild_fraction: float = 0.25,
         device=None,
     ):
-        if device is None:
-            device = (vectors.device if isinstance(vectors, torch.Tensor)
-                      else "cpu")
-        self._device = torch.device(device)
+        self._device = resolve_device(device, vectors)
         self._leaf_size = leaf_size
         self._rebuild_fraction = rebuild_fraction
         self._next_id = 0
@@ -471,7 +469,8 @@ class DynamicIndex:
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "DynamicIndex":
-        """Load a checkpoint written by either package's ``save``."""
+        """Load a checkpoint written by either package's ``save``, onto
+        ``device`` (default: the card, ``cuda``)."""
         with np.load(os.path.join(path, "state.npz")) as z:
             out = cls(
                 leaf_size=int(z["leaf_size"]),

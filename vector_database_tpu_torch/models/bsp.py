@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from vector_database_tpu_torch.utils.device import resolve_device
+
 _ARRAYS = ("dim", "mid", "low", "high", "leaf_start", "leaf_count",
            "vectors", "orig_row")
 
@@ -78,7 +80,9 @@ class BSPIndex:
     @classmethod
     def from_numpy(cls, arrays, meta, *, device=None) -> "BSPIndex":
         """Index from numpy node/point arrays (the npz keys) and
-        ``meta = [depth, leaf_cap, num_leaves(, ties_high)]``."""
+        ``meta = [depth, leaf_cap, num_leaves(, ties_high)]``, on
+        ``device`` (default: the card, ``cuda``)."""
+        device = resolve_device(device)
         meta = [int(v) for v in meta]
         depth, leaf_cap, num_leaves = meta[:3]
         return cls(
@@ -93,6 +97,8 @@ class BSPIndex:
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "BSPIndex":
+        """Load an npz written by either package's ``save``, onto
+        ``device`` (default: the card, ``cuda``)."""
         path = str(path)
         with np.load(path if path.endswith(".npz") else path + ".npz") as z:
             return cls.from_numpy(z, z["meta"], device=device)

@@ -16,12 +16,16 @@ import contextlib
 import numpy as np
 import torch
 
+from vector_database_tpu_torch.utils.device import resolve_device
+
 
 def as_f32(x, device=None) -> torch.Tensor:
     """``x`` (tensor, numpy array or nested list) as a float32 tensor on
-    ``device`` (default: where ``x`` already lies; the CPU for host data)."""
+    ``resolve_device(device, x)``: ``device`` if given, else where a
+    tensor ``x`` lies, else the card (``cuda``) for host data."""
+    device = resolve_device(device, x)
     if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=torch.float32)
+        return x.to(device=device, dtype=torch.float32)
     arr = np.asarray(x, np.float32)
     if not arr.flags.writeable:  # e.g. a view of a JAX array
         arr = arr.copy()

@@ -52,6 +52,7 @@ from vector_database_tpu_torch.ops.exact import (
     full_f32,
     normalize_rows,
 )
+from vector_database_tpu_torch.utils.device import resolve_device
 
 
 def _round_up(x: int, m: int) -> int:
@@ -144,7 +145,9 @@ class PackedDB:
         """Pack from numpy buffers ``arrays`` (``vb``, ``vn``,
         ``vectors``, optional ``cent``/``rad``; ``vb`` may be an ml_dtypes
         bfloat16 array or int8, ``vn`` f32 or int32) and ``meta`` (``n``,
-        ``block``, ``m``, ``bits``, optional ``sq`` and ``metric``)."""
+        ``block``, ``m``, ``bits``, optional ``sq`` and ``metric``), on
+        ``device`` (default: the card, ``cuda``)."""
+        device = resolve_device(device)
         opt = {key: _to_tensor(arrays[key], device)
                for key in ("cent", "rad") if arrays.get(key) is not None}
         return cls(
