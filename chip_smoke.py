@@ -5,18 +5,22 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the three CUDA kernels from ``vector_database_tpu_torch/csrc``,
-   one ``nvcc`` each, all at once;
+1. build the four CUDA kernels from ``vector_database_tpu_torch/csrc``
+   (``bucket_scan_sm90.cu``, the bf16 scan; ``bucket_scan.cu``, its int8f
+   route; ``bucket_scan_i8.cu``; ``probe_kernel_ab.cu``), one ``nvcc``
+   each, all at once;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
    centres uniform in [-1, 1], sigma 0.05): fused build (leaf 16), pack
    (4096 buckets), ``PackedServer`` full scan and pruned scans at probes
    192/256/320, q=4096, recall@10 against the exact oracle on 1024
-   queries; the kernel's launch count must rise;
-4. the kernel against its plain torch version at the main path's shapes
-   (full and pruned), with the two bitwise equalities of the pruned
-   path (probes = nb equals the full scan; runtime probes equal static);
+   queries; the bf16 kernel's launch count must rise;
+4. the bf16 kernel against its plain torch version at the main path's
+   shapes (full and pruned), with the two bitwise equalities of the
+   pruned path (probes = nb equals the full scan; runtime probes equal
+   static), its bound and a library yardstick (``torch.matmul`` of the
+   same products, which no PyTorch call fuses with the bucket minimum);
 5. exact radius ``search``/``knn`` through the tree at 1M x 8 against
    the oracle;
 6. the int8 and int8f packs of the same 10M x 96 leaf-major matrix: pack
@@ -45,9 +49,11 @@ Phases (each raises on failure; nothing is caught):
    delta without a rebuild. The kernel's launch count must rise in each.
 
 It prints the card's name and power limit, one JSON line of phase-8
-results, one JSON line of kernel results, and, last, ``{"ok": true,
-"device": {...}}``. Without a CUDA device it exits non-zero and prints no
-result.
+results, one JSON line of kernel results (each kernel with its time, its
+plain version's, its bound from this run's shapes and the card's
+published peaks, the library yardstick, TFLOP/s and share of the bound),
+and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
+exits non-zero and prints no result.
 """
 
 import json
@@ -65,6 +71,9 @@ REMOVE, ADD, EXACT_Q, PROBE = N // 100, 10_000, 256, 256
 STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
 REPS = 3
 DEVICE = "cuda"
+# NVIDIA H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM
+PEAK_BF16, PEAK_INT8, PEAK_HBM = 989e12, 1979e12, 3.35e12
+LIB_BLOCKS = 8  # blocks per library-yardstick call, scaled to the scan
 
 
 def _ms(fn, reps):
@@ -153,6 +162,50 @@ def _compare_acc(got, want, pack, qb):
             raise AssertionError("kernel picked a block the plain version "
                                  "beats by more than the tolerance")
     return float(err.max()), qi.numel() / gi.numel()
+
+
+def _bound(ops, nbytes, peak):
+    """``(bound_ms, bound_by)``: the least time for ``ops`` operations at
+    ``peak`` per second and ``nbytes`` of inputs read once and outputs
+    written once at the card's memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _numbers(ms, ops, nbytes, peak, library_ms):
+    """The kernel JSON's measured and derived numbers for one kernel."""
+    bound_ms, bound_by = _bound(ops, nbytes, peak)
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, tflops=ops / ms / 1e9,
+                pct_of_bound=100.0 * bound_ms / ms)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _matmul_ms(q, vb, blocks):
+    """Library yardstick, products only: ``torch.matmul`` of the bf16
+    queries against LIB_BLOCKS blocks at once, scaled to ``blocks``."""
+    import torch
+
+    part = vb[:LIB_BLOCKS] if vb.dtype == torch.bfloat16 else \
+        vb[:LIB_BLOCKS].bfloat16()
+    return _ms(lambda: torch.matmul(q, part), REPS) * blocks / LIB_BLOCKS
+
+
+def _int_mm_ms(qi, vb, blocks):
+    """Library yardstick of the exact int8 scan: ``torch._int_mm`` per
+    block (int8 x int8 -> int32 products), scaled to ``blocks``; None
+    where the call does not take these shapes on this build."""
+    import torch
+
+    try:
+        t = _ms(lambda: [torch._int_mm(qi, vb[b]) for b in
+                         range(LIB_BLOCKS)], REPS)
+    except RuntimeError:
+        return None
+    return t * blocks / LIB_BLOCKS
 
 
 def _host_ms(fn, reps):
@@ -496,11 +549,13 @@ def main():
 
     # ---- 1. build -----------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build("bucket_scan", "bucket_scan_i8", "probe_kernel_ab")
+    cuda_build.build("bucket_scan_sm90", "bucket_scan", "bucket_scan_i8",
+                     "probe_kernel_ab")
     for mod in (bs, bi, pab):
         mod._load()
-    print(f"[build] bucket_scan.cu, bucket_scan_i8.cu, probe_kernel_ab.cu "
-          f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] bucket_scan_sm90.cu, bucket_scan.cu, bucket_scan_i8.cu, "
+          f"probe_kernel_ab.cu built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. exactness where the scan is exact (n <= buckets) ------------
     g = torch.Generator(device=dev).manual_seed(42)
@@ -576,9 +631,17 @@ def main():
     k_ms = _ms(lambda: bs.bucket_scan(pack.vn, pack.vb, qb, **args), REPS)
     p_ms = _ms(lambda: bs.bucket_scan_reference(pack.vn, pack.vb, qb,
                                                 **args), REPS)
+    block_bytes = d_pad * pack.block * 2 + pack.block * 4  # vb + vn
+    full_ops = 2 * Q * nb * pack.block * d_pad
+    full_k = _numbers(k_ms, full_ops,
+                      nb * block_bytes + _nbytes(qb, acc_k), PEAK_BF16,
+                      _matmul_ms(qb, pack.vb, nb))
     print(f"[kernel] full scan {Q}x{nb} blocks: kernel {k_ms:.3f} ms, "
           f"plain {p_ms:.3f} ms, max |score err| {full_err:.3g}, "
-          f"block-id ties {full_mis:.2e}")
+          f"block-id ties {full_mis:.2e}; bound {full_k['bound_ms']:.3f} ms "
+          f"({full_k['bound_by']}), {full_k['tflops']:.1f} TFLOP/s, "
+          f"{full_k['pct_of_bound']:.1f}% of bound; torch.matmul of the "
+          f"same products {full_k['library_ms']:.3f} ms")
 
     order, bmap = _block_map(pack, test, q_tile=q_tile, probes=max(PROBES))
     qs_sorted = qb[order]
@@ -590,9 +653,19 @@ def main():
                                        **pargs), REPS)
     pp_ms = _ms(lambda: bs.bucket_scan_reference(pack.vn, pack.vb,
                                                  qs_sorted, **pargs), REPS)
-    print(f"[kernel] pruned 256 of {nb} blocks: kernel {pk_ms:.3f} ms, "
+    probe = pargs["nprobe"]
+    # every query streams `probe` blocks; the blocks some group reads
+    # cross HBM once
+    read = torch.unique(bmap[:, :probe]).numel()
+    pruned_k = _numbers(pk_ms, 2 * Q * probe * pack.block * d_pad,
+                        read * block_bytes + _nbytes(qs_sorted, pk),
+                        PEAK_BF16, _matmul_ms(qb, pack.vb, probe))
+    print(f"[kernel] pruned {probe} of {nb} blocks: kernel {pk_ms:.3f} ms, "
           f"plain {pp_ms:.3f} ms, max |score err| {pr_err:.3g}, "
-          f"block-id ties {pr_mis:.2e}")
+          f"block-id ties {pr_mis:.2e}; bound {pruned_k['bound_ms']:.3f} ms "
+          f"({pruned_k['bound_by']}), {pruned_k['tflops']:.1f} TFLOP/s, "
+          f"{pruned_k['pct_of_bound']:.1f}% of bound; torch.matmul "
+          f"{pruned_k['library_ms']:.3f} ms")
 
     _, all_map = _block_map(pack, test, q_tile=q_tile, probes=nb)
     acc_all = bs.bucket_scan(pack.vn, pack.vb, qs_sorted, **dict(
@@ -703,8 +776,13 @@ def main():
     i8_ms = _ms(lambda: bi.bucket_scan_i8(p8.vn, p8.vb, qi, m=p8.m), REPS)
     i8_plain_ms = _ms(lambda: bi.bucket_scan_i8_reference(
         p8.vn, p8.vb, qi, m=p8.m), REPS)
+    i8_k = _numbers(i8_ms, full_ops, _nbytes(p8.vb, p8.vn, qi, sk, ik),
+                    PEAK_INT8, _int_mm_ms(qi, p8.vb, nb))
     print(f"[int8] i8 kernel {Q}x{nb} blocks: kernel {i8_ms:.3f} ms, plain "
-          f"{i8_plain_ms:.3f} ms, scores and block ids bitwise equal")
+          f"{i8_plain_ms:.3f} ms, scores and block ids bitwise equal; "
+          f"bound {i8_k['bound_ms']:.3f} ms ({i8_k['bound_by']}), "
+          f"{i8_k['pct_of_bound']:.1f}% of bound; torch._int_mm "
+          f"{i8_k['library_ms']}")
     del sk, ik, sp, ip
 
     qf = _scan_queries(p8f, qp)
@@ -715,9 +793,14 @@ def main():
     i8f_ms = _ms(lambda: bs.bucket_scan(p8f.vn, p8f.vb, qf, **args8), REPS)
     i8f_plain_ms = _ms(lambda: bs.bucket_scan_reference(
         p8f.vn, p8f.vb, qf, **args8), REPS)
+    i8f_k = _numbers(i8f_ms, full_ops,
+                     _nbytes(p8f.vb, p8f.vn, qf, acc_k), PEAK_BF16,
+                     _matmul_ms(qf, p8f.vb, nb))
     print(f"[int8] int8f kernel {Q}x{nb} blocks: kernel {i8f_ms:.3f} ms, "
           f"plain {i8f_plain_ms:.3f} ms, max |score err| {i8f_err:.3g}, "
-          f"block-id ties {i8f_mis:.2e}")
+          f"block-id ties {i8f_mis:.2e}; bound {i8f_k['bound_ms']:.3f} ms "
+          f"({i8f_k['bound_by']}), {i8f_k['pct_of_bound']:.1f}% of bound; "
+          f"torch.matmul {i8f_k['library_ms']:.3f} ms")
     order, bmap8 = _block_map(p8f, test, q_tile=q_tile, probes=max(PROBES))
     qfs = qf[order]
     pargs8 = dict(args8, bmap=bmap8, nprobe=min(256, nb), q_tile=q_tile)
@@ -805,9 +888,14 @@ def main():
                                             qn_ab, **ab_args), REPS)
     ab_plain_ms = _ms(lambda: pab.probe_kernel_ab_reference(
         "full", vn_ab, vb_ab, q_ab, qn_ab, **ab_args), 1)
+    ab_n = _numbers(ab_ms, 2 * pab.Q * nb_ab * pab.BLOCK * pab.D_PAD,
+                    _nbytes(vn_ab, vb_ab, q_ab, qn_ab, ab_k), PEAK_BF16,
+                    _matmul_ms(q_ab, vb_ab, nb_ab))
     print(f"[probe] full at {N} rows, {pab.Q} queries, small integers: "
           f"kernel {ab_ms:.3f} ms, plain {ab_plain_ms:.3f} ms, bitwise "
-          "equal")
+          f"equal; bound {ab_n['bound_ms']:.3f} ms ({ab_n['bound_by']}), "
+          f"{ab_n['pct_of_bound']:.1f}% of bound; torch.matmul "
+          f"{ab_n['library_ms']:.3f} ms")
     del vn_ab, vb_ab, q_ab, qn_ab, ab_k, ab_p
     torch.cuda.empty_cache()
 
@@ -825,25 +913,15 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
-        "source": "vector_database_tpu_torch/csrc/bucket_scan.cu",
+        "source": "vector_database_tpu_torch/csrc/bucket_scan_sm90.cu",
         "replaces": "vector_database_tpu/ops/pallas_knn.py:130",
         "also_replaces": ["vector_database_tpu/ops/pallas_knn.py:203",
                           "vector_database_tpu/ops/pallas_knn.py:274"],
         "launches": launches,
         "max_abs_err": full_err,
-        "ms": k_ms,
+        **full_k,
         "plain_ms": p_ms,
-        "pruned256_ms": pk_ms,
-        "pruned256_plain_ms": pp_ms,
-        "pruned256_max_abs_err": pr_err,
-        "int8f_launches": i8f_launches,
-        "int8f_max_abs_err": i8f_err,
-        "int8f_ms": i8f_ms,
-        "int8f_plain_ms": i8f_plain_ms,
-        "int8f_pruned256_ms": i8p_ms,
-        "int8f_pruned256_plain_ms": i8p_plain_ms,
-        "int8f_pruned256_max_abs_err": i8p_err,
-        "int8f_masked_max_abs_err": i8m_err,
+        "pruned256": dict(pruned_k, max_abs_err=pr_err, plain_ms=pp_ms),
         "masked_launches_dynamic": dyn["launches"],
         "masked_launches_store": store["launches"],
         "masked_max_abs_err": dyn["kernel_masked_max_abs_err"],
@@ -855,13 +933,28 @@ def main():
         "masked_pruned256_plain_ms":
             dyn["kernel_masked_pruned256_plain_ms"],
     }, {
+        "name": "bucket_scan_int8f",
+        "route": "cuda",
+        "source": "vector_database_tpu_torch/csrc/bucket_scan.cu",
+        "replaces": "vector_database_tpu/ops/pallas_knn.py:130",
+        "also_replaces": ["vector_database_tpu/ops/pallas_knn.py:203",
+                          "vector_database_tpu/ops/pallas_knn.py:274"],
+        "launches": i8f_launches,
+        "max_abs_err": i8f_err,
+        **i8f_k,
+        "plain_ms": i8f_plain_ms,
+        "pruned256_ms": i8p_ms,
+        "pruned256_plain_ms": i8p_plain_ms,
+        "pruned256_max_abs_err": i8p_err,
+        "masked_max_abs_err": i8m_err,
+    }, {
         "name": "bucket_scan_i8",
         "route": "cuda",
         "source": "vector_database_tpu_torch/csrc/bucket_scan_i8.cu",
         "replaces": "vector_database_tpu/ops/pallas_knn.py:344",
         "launches": i8_launches,
         "max_abs_err": i8_err,
-        "ms": i8_ms,
+        **i8_k,
         "plain_ms": i8_plain_ms,
     }, {
         "name": "probe_kernel_ab",
@@ -870,7 +963,7 @@ def main():
         "replaces": "benchmarks/probe_kernel_ab.py:26",
         "launches": ab_launches,
         "max_abs_err": ab_err,
-        "ms": ab_ms,
+        **ab_n,
         "plain_ms": ab_plain_ms,
         "modes_ms": {r["mode"]: r["ms_per_1024q"] for r in ab},
     }]}))

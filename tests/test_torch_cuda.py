@@ -133,3 +133,66 @@ def test_kernel_matches_plain_on_masked_pack(cuda_device, int8f, pruned):
     want = tbs.bucket_scan_reference(vn, vb, q, **args)
     assert torch.equal(got, want)
     assert bool((got < 1e30).all())  # every winner is a live row
+
+
+def _exact_bf16(g, dev, nb, d_pad, block, q_pad):
+    """bf16 blocks in [-2, 2], queries in multiples of 1/8 in [-1, 1],
+    norms in multiples of 1/8: every sum is an exact multiple of 1/64."""
+    kw = dict(generator=g, device=dev)
+    vb = torch.randint(-2, 3, (nb, d_pad, block), **kw).bfloat16()
+    vn = torch.randint(0, 241, (nb, 1, block), **kw) / 8.0
+    q = (torch.randint(-8, 9, (q_pad, d_pad), **kw) / 8.0).bfloat16()
+    return vn, vb, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_pad,q_pad,m", [
+    (96, 64, 512),     # one CTA row of 64 queries, a partial K box
+    (128, 600, 256),   # 256-row CTAs, the third one ragged; 4 slices
+    (384, 300, 512),   # 64-row contraction chunks, six a slice
+])
+def test_bf16_kernel_full_scan_on_card(cuda_device, d_pad, q_pad, m):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    vn, vb, q = _exact_bf16(g, cuda_device, 5, d_pad, 1024, q_pad)
+    before = tbs.bucket_scan.LAUNCHES
+    got = tbs.bucket_scan(vn, vb, q, m=m, bits=3)
+    assert tbs.bucket_scan.LAUNCHES == before + 1
+    assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, m=m, bits=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_tile,d_pad", [(104, 128), (256, 96), (512, 384)])
+def test_bf16_kernel_pruned_on_card(cuda_device, q_tile, d_pad):
+    """Two query groups, each walking 3 of its 4 listed blocks; a group
+    of 104 rows takes one 128-row CTA, 512 rows two of 256. Then every
+    block in every group's map: equal to the full scan, bitwise."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    nb = 5
+    vn, vb, q = _exact_bf16(g, cuda_device, nb, d_pad, 1024, 2 * q_tile)
+    bmap = torch.tensor([[4, 0, 2, 1], [1, 3, 0, 4]], dtype=torch.int32,
+                        device=cuda_device)
+    args = dict(m=512, bits=3, bmap=bmap, nprobe=3, q_tile=q_tile)
+    got = tbs.bucket_scan(vn, vb, q, **args)
+    assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, **args))
+    every = torch.stack([torch.randperm(nb, generator=g, device=cuda_device)
+                         for _ in range(2)]).int()
+    all_probes = tbs.bucket_scan(vn, vb, q, m=512, bits=3, bmap=every,
+                                 nprobe=nb, q_tile=q_tile)
+    assert torch.equal(all_probes, tbs.bucket_scan(vn, vb, q, m=512, bits=3))
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_masked_norm_row_on_card(cuda_device):
+    """A norm row with 3e38 entries (dead rows of a masked pack) at the
+    256-row tile: bitwise equal to the plain version, no dead winner."""
+    from vector_database_tpu_torch.ops.packed_knn import _mask_vn
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    vn, vb, q = _exact_bf16(g, cuda_device, 5, 128, 1024, 512)
+    n = 5 * 1024 - 100
+    alive = torch.rand(n, generator=g, device=cuda_device) >= 0.1
+    vn = _mask_vn(vn, alive, n)
+    got = tbs.bucket_scan(vn, vb, q, m=512, bits=3)
+    assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, m=512,
+                                                      bits=3))
+    assert bool((got < 1e30).all())
