@@ -5,8 +5,8 @@ The kernel itself (``csrc/bucket_scan_sm90.cu``) runs only on the card
 
 - the fold identity that lets it keep one running minimum per output
   element instead of per-slice minima;
-- the tile and shared-memory plan that sizes its CTAs (``scan_plan``,
-  ``cta_rows``);
+- the tile and shared-memory plan that sizes its CTAs (``scan_plan``)
+  and the rows each CTA takes, as the kernel derives them;
 - the default device of the port's entry points (``resolve_device``),
   without touching a card.
 """
@@ -30,6 +30,22 @@ def _enc(x, b, bits):
     keep = np.uint32(~((1 << bits) - 1) & 0xFFFFFFFF)
     u = np.asarray(x, np.float32).view(np.uint32)
     return ((u & keep) | np.uint32(b)).view(np.float32)
+
+
+def _cta_rows(plan, q_pad, q_tile):
+    """``(first row, rows)`` of each CTA along the grid's x axis, as
+    ``bucket_scan_sm90.cu`` derives them: ``ceil(q_tile / plan.rows)``
+    CTAs per group of ``q_tile`` rows (``q_pad`` for a full scan), the
+    last one ragged."""
+    q_tile = q_tile or q_pad
+    cpg = -(-q_tile // plan.rows)
+    out = []
+    for x in range((q_pad // q_tile) * cpg):
+        group, i = divmod(x, cpg)
+        row0 = group * q_tile + i * plan.rows
+        out.append((row0, min(plan.rows, group * q_tile + q_tile - row0,
+                              q_pad - row0)))
+    return out
 
 
 # f32 scores of both signs, and the 3e38 masked norm a dead row scores.
@@ -78,7 +94,7 @@ def test_plan_fits_and_never_straddles_a_group(q_tile, d_pad):
     if d_pad <= 128:  # narrow rows: the tallest tile that covers a group
         assert plan.rows == min(256, max(32, 1 << (q_tile - 1).bit_length()))
     groups = 3
-    ctas = tbs.cta_rows(plan, groups * q_tile, q_tile)
+    ctas = _cta_rows(plan, groups * q_tile, q_tile)
     covered = np.zeros(groups * q_tile, np.int64)
     for row0, rows in ctas:
         assert 1 <= rows <= plan.rows
@@ -92,7 +108,7 @@ def test_plan_of_the_main_path():
     256-row CTAs, one 128-row chunk a slice, an 8-deep ring."""
     for rows in (4096, 512):
         assert tbs.scan_plan(rows, 128) == tbs.ScanPlan(128, 128, 8, 199816)
-    assert len(tbs.cta_rows(tbs.scan_plan(4096, 128), 4096, None)) == 16
+    assert len(_cta_rows(tbs.scan_plan(4096, 128), 4096, None)) == 16
 
 
 @pytest.mark.parametrize("rows,d_pad", [(64, 100), (64, 8), (0, 128),

@@ -196,3 +196,15 @@ def test_bf16_kernel_masked_norm_row_on_card(cuda_device):
     assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, m=512,
                                                       bits=3))
     assert bool((got < 1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d_pad", [(8, 32), (104, 96), (512, 128),
+                                        (4096, 384), (512, 1536)])
+def test_bf16_plan_matches_kernel_layout(cuda_device, rows, d_pad):
+    """The plan's shared-memory sum (computed in Python, so the CPU tests
+    can check it fits) is the size the kernel lays out and launches."""
+    plan = tbs.scan_plan(rows, d_pad)
+    lib = tbs._load_sm90()
+    assert lib.bucket_scan_sm90_smem_bytes(plan.nq, d_pad, plan.kc,
+                                           plan.stages) == plan.smem

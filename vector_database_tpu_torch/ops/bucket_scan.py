@@ -93,21 +93,6 @@ def scan_plan(rows: int, d_pad: int) -> ScanPlan:
     )
 
 
-def cta_rows(plan: ScanPlan, q_pad: int, q_tile: int | None):
-    """``(first row, rows)`` of each CTA along the grid's x axis, as the
-    kernel derives them: ``ceil(q_tile / plan.rows)`` CTAs per group of
-    ``q_tile`` rows (``q_pad`` for a full scan), the last one ragged."""
-    q_tile = q_tile or q_pad
-    cpg = -(-q_tile // plan.rows)
-    out = []
-    for x in range((q_pad // q_tile) * cpg):
-        group, i = divmod(x, cpg)
-        row0 = group * q_tile + i * plan.rows
-        out.append((row0, min(plan.rows, group * q_tile + q_tile - row0,
-                              q_pad - row0)))
-    return out
-
-
 def _declare_sm90(lib):
     lib.bucket_scan_sm90_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
