@@ -5,10 +5,11 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the four CUDA kernels from ``vector_database_tpu_torch/csrc``
-   (``bucket_scan_sm90.cu``, the bf16 scan; ``bucket_scan.cu``, its int8f
-   route; ``bucket_scan_i8.cu``; ``probe_kernel_ab.cu``), one ``nvcc``
-   each, all at once;
+1. build the three CUDA sources from ``vector_database_tpu_torch/csrc``
+   (``bucket_scan_sm90.cu``, the scan of bf16 and int8f packs, and
+   ``probe_kernel_ab.cu``, the A/B probe, both on the Hopper skeleton of
+   ``sm90.cuh``; ``bucket_scan_i8.cu``, the exact int8 scan), one
+   ``nvcc`` each, all at once;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
@@ -27,14 +28,16 @@ Phases (each raises on failure; nothing is caught):
    time, block bytes (half the bf16 pack's) and scale; ``PackedServer``
    full scans over both (recall@10 >= 0.90) and pruned int8f scans at
    probes 192/256/320; the exact int8 kernel bitwise equal to its plain
-   version, the int8f route (full, and pruned to 256 blocks) within the
-   bf16 tolerance (also on an int8f pack with a seeded 1% of rows
-   masked), and the pruned int8f equalities of phase 4; both launch
-   counts must rise;
+   version, the int8f route of ``bucket_scan_sm90.cu`` (full, and pruned
+   to 256 blocks) within the bf16 tolerance (also on an int8f pack with a
+   seeded 1% of rows masked), and the pruned int8f equalities of phase 4;
+   both launch counts must rise;
 7. the A/B scan probe: each mode bitwise equal to its plain version on
    small integers at 3 blocks, then its entry point times the four modes
    at 10M rows and 1024 queries (its JSON lines), and ``full`` is held
-   bitwise to its plain version at that size, on small integers;
+   bitwise to its plain version at that size, on small integers; then
+   the four modes are timed again at the serving batch, q=4096, beside
+   the scan kernel of phase 4 (the ``split_q4096_ms`` field);
 8. the mutable collections. (a) ``DynamicIndex`` over the same 10M x 96
    rows: construction, a packed batch, ``remove_ids`` of a seeded 1% and
    10,000 adds kept in the delta, packed full and pruned (256) batches
@@ -549,11 +552,10 @@ def main():
 
     # ---- 1. build -----------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build("bucket_scan_sm90", "bucket_scan", "bucket_scan_i8",
-                     "probe_kernel_ab")
+    cuda_build.build("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab")
     for mod in (bs, bi, pab):
         mod._load()
-    print(f"[build] bucket_scan_sm90.cu, bucket_scan.cu, bucket_scan_i8.cu, "
+    print(f"[build] bucket_scan_sm90.cu, bucket_scan_i8.cu, "
           f"probe_kernel_ab.cu built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -810,9 +812,18 @@ def main():
     i8p_ms = _ms(lambda: bs.bucket_scan(p8f.vn, p8f.vb, qfs, **pargs8), REPS)
     i8p_plain_ms = _ms(lambda: bs.bucket_scan_reference(
         p8f.vn, p8f.vb, qfs, **pargs8), REPS)
-    print(f"[int8] int8f pruned 256 of {nb} blocks: kernel {i8p_ms:.3f} ms, "
-          f"plain {i8p_plain_ms:.3f} ms, max |score err| {i8p_err:.3g}, "
-          f"block-id ties {i8p_mis:.2e}")
+    probe8 = pargs8["nprobe"]
+    read8 = torch.unique(bmap8[:, :probe8]).numel()
+    i8p_k = _numbers(i8p_ms, 2 * Q * probe8 * p8f.block * d_pad,
+                     read8 * (d_pad * p8f.block + p8f.block * 4)
+                     + _nbytes(qfs, pk), PEAK_BF16,
+                     _matmul_ms(qf, p8f.vb, probe8))
+    print(f"[int8] int8f pruned {probe8} of {nb} blocks: kernel "
+          f"{i8p_ms:.3f} ms, plain {i8p_plain_ms:.3f} ms, max |score err| "
+          f"{i8p_err:.3g}, block-id ties {i8p_mis:.2e}; bound "
+          f"{i8p_k['bound_ms']:.3f} ms ({i8p_k['bound_by']}), "
+          f"{i8p_k['pct_of_bound']:.1f}% of bound; torch.matmul "
+          f"{i8p_k['library_ms']:.3f} ms")
     _, all_map = _block_map(p8f, test, q_tile=q_tile, probes=nb)
     acc_all = bs.bucket_scan(p8f.vn, p8f.vb, qfs, **dict(
         args8, bmap=all_map, nprobe=nb, q_tile=q_tile))
@@ -897,6 +908,16 @@ def main():
           f"{ab_n['pct_of_bound']:.1f}% of bound; torch.matmul "
           f"{ab_n['library_ms']:.3f} ms")
     del vn_ab, vb_ab, q_ab, qn_ab, ab_k, ab_p
+    # the split at the serving batch, beside the scan kernel of phase 4
+    vn_ab, vb_ab, q_ab, qn_ab = pab.make_inputs(N, q=Q)
+    ab_args = dict(m=pab.M, bits=pab.id_bits(vb_ab.shape[0], w_ab))
+    split = {mode: _ms(lambda: pab.probe_kernel_ab(
+        mode, vn_ab, vb_ab, q_ab, qn_ab, **ab_args), REPS)
+        for mode in pab.MODES}
+    print(f"[probe] the four modes at q={Q} (the scan kernel alone took "
+          f"{k_ms:.3f} ms): " + ", ".join(f"{mode} {t:.3f} ms"
+                                          for mode, t in split.items()))
+    del vn_ab, vb_ab, q_ab, qn_ab
     torch.cuda.empty_cache()
 
     # ---- 8. the mutable collections ----------------------------------------
@@ -935,7 +956,7 @@ def main():
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",
-        "source": "vector_database_tpu_torch/csrc/bucket_scan.cu",
+        "source": "vector_database_tpu_torch/csrc/bucket_scan_sm90.cu",
         "replaces": "vector_database_tpu/ops/pallas_knn.py:130",
         "also_replaces": ["vector_database_tpu/ops/pallas_knn.py:203",
                           "vector_database_tpu/ops/pallas_knn.py:274"],
@@ -943,9 +964,7 @@ def main():
         "max_abs_err": i8f_err,
         **i8f_k,
         "plain_ms": i8f_plain_ms,
-        "pruned256_ms": i8p_ms,
-        "pruned256_plain_ms": i8p_plain_ms,
-        "pruned256_max_abs_err": i8p_err,
+        "pruned256": dict(i8p_k, max_abs_err=i8p_err, plain_ms=i8p_plain_ms),
         "masked_max_abs_err": i8m_err,
     }, {
         "name": "bucket_scan_i8",
@@ -966,6 +985,7 @@ def main():
         **ab_n,
         "plain_ms": ab_plain_ms,
         "modes_ms": {r["mode"]: r["ms_per_1024q"] for r in ab},
+        "split_q4096_ms": split,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

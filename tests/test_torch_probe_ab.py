@@ -21,6 +21,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from vector_database_tpu_torch.benchmarks import probe_kernel_ab as tab
+from vector_database_tpu_torch.ops import bucket_scan as tbs
+from vector_database_tpu_torch.ops import cuda_build
 
 torch.set_num_threads(2)
 
@@ -84,3 +86,31 @@ def test_probe_uses_plain_version_only_on_cpu():
                             qb.to("meta"), qn.to("meta"), m=128, bits=3)
     with pytest.raises(ValueError, match="unknown mode"):
         tab.probe_kernel_ab("fast", vn, vb, qb, qn, m=128, bits=3)
+
+
+@pytest.mark.parametrize("m", [64, 192, tab.M])
+def test_probe_takes_the_skeletons_shapes(m):
+    """The probe runs the serving scan's skeleton and takes its shapes:
+    any multiple of 64 bucket columns (the first probe kernel wanted
+    128)."""
+    assert tab.check_kernel_shape is tbs.check_kernel_shape
+    tab.check_kernel_shape(tab.D_PAD, m)
+
+
+@pytest.mark.parametrize("m", [96, 32])
+def test_probe_refuses_partial_column_tiles(m):
+    with pytest.raises(ValueError, match="m % 64 == 0"):
+        tab.check_kernel_shape(tab.D_PAD, m)
+
+
+@pytest.mark.parametrize("q_pad,nq", [(104, 64), (1024, 128), (4096, 128)])
+def test_probe_plan_keeps_query_norms_beside_the_tile(q_pad, nq):
+    """The probe's plan is the scan's plus an ``[R]`` f32 tile of query
+    norms; at its defaults (1024 queries, m 2048) that is 4 x 32 = 128
+    CTAs of 256 rows, one wave on 132 SMs."""
+    plan = tbs.scan_plan(q_pad, tab.D_PAD, qn_tile=True)
+    scan = tbs.scan_plan(q_pad, tab.D_PAD)
+    assert (plan.nq, plan.kc, plan.stages) == (nq, scan.kc, scan.stages)
+    assert plan.smem == scan.smem + plan.rows * 4 <= cuda_build.SMEM_LIMIT
+    if q_pad == tab.Q:
+        assert -(-q_pad // plan.rows) * (tab.M // 64) == 128

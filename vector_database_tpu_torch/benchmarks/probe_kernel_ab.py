@@ -4,9 +4,10 @@
     python -m vector_database_tpu_torch.benchmarks.probe_kernel_ab [N] [modes]
 
 Four variants of the scan, one CUDA kernel with a compile-time mode
-(``csrc/probe_kernel_ab.cu``) on the staging and ``mma.sync`` skeleton of
-``csrc/bucket_scan.cu``, split the kernel's time between streaming the
-blocks, the products and the epilogue:
+(``csrc/probe_kernel_ab.cu``) on the serving scan's skeleton
+(``csrc/sm90.cuh``: TMA ring, ``wgmma``, 256-row query tiles, the same
+tile plan ``ops.bucket_scan.scan_plan``), split the serving kernel's time
+between streaming the blocks, the products and the epilogue:
 
 - ``full``: the older scan's per-slice epilogue, an int32 running min of
   ``(bits(vn - 2 q.v + qn) & keep) | (b*w + j)``;
@@ -40,11 +41,14 @@ import numpy as np
 import torch
 
 from vector_database_tpu_torch.ops import cuda_build
+from vector_database_tpu_torch.ops.bucket_scan import (
+    check_kernel_shape,
+    scan_plan,
+)
 
 D, Q, REPS = 96, 1024, 20
 D_PAD, BLOCK, Q_TILE, M = 128, 8192, 256, 2048
 MODES = ("full", "noepi", "nodot", "dmaonly")
-_MT = 128  # the kernel's bucket columns per CTA
 _NODOT_2X = 2.0 * float(np.float32(1.0001))  # exact: twice an f32
 
 
@@ -55,11 +59,11 @@ def id_bits(nb: int, w: int) -> int:
 
 def _declare(lib):
     lib.probe_kernel_ab_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 +
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 +
         [ctypes.c_void_p]
     )
     lib.probe_kernel_ab_launch.restype = ctypes.c_int
-    lib.probe_kernel_ab_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.probe_kernel_ab_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.probe_kernel_ab_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -125,16 +129,14 @@ def probe_kernel_ab(mode, vn, vb, q, qn, *, m, bits):
         raise ValueError("probe_kernel_ab: inputs must be contiguous, one "
                          "device")
     nb, d_pad, block = vb.shape
-    if d_pad % 16 or m % _MT:
-        raise ValueError(f"the kernel needs d_pad % 16 == 0 and m % {_MT} "
-                         f"== 0; got d_pad={d_pad}, m={m}")
+    check_kernel_shape(d_pad, m)
     q_pad = q.shape[0]
+    plan = scan_plan(q_pad, d_pad, qn_tile=True)
     out = torch.empty((q_pad, m), dtype=torch.int32, device=q.device)
     err = _load().probe_kernel_ab_launch(
         MODES.index(mode), vn.data_ptr(), vb.data_ptr(), q.data_ptr(),
         qn.data_ptr(), out.data_ptr(), nb, d_pad, block, m, bits, q_pad,
-        cuda_build.pick_qt(q_pad, lambda qt: _load()
-                           .probe_kernel_ab_smem_bytes(qt, d_pad)),
+        plan.nq, plan.kc, plan.stages,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

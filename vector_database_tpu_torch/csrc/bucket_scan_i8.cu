@@ -17,13 +17,14 @@
 // What bounds it on an H100: at 10M x 96 (d_pad 128), q=4096 the scan is
 // 10.7 T int8 operations against 1.28 GB of blocks, ~8000 per byte streamed
 // from HBM, so HBM is not the bound; the int8 tensor cores run at twice
-// the bf16 rate. Measured at that size it still takes longer than the bf16
-// scan of bucket_scan.cu: the L2 re-reads per query-tile row remain (at
-// half the bytes), and the B-fragment transposes below, repeated by each
-// warp row, take instruction slots beside the MMAs (the first suspect; not
-// measured apart). What the design does about that:
-//   * the same CTA split as bucket_scan.cu: grid (q_pad / qt, m / MT) with
-//     the query-tile axis fastest, so the CTAs resident at one time read
+// the bf16 rate. Measured at that size it still took longer than the bf16
+// scan of the first port (mma.sync, 64-row query tiles): the L2 re-reads
+// per query-tile row remain (at half the bytes), and the B-fragment
+// transposes below, repeated by each warp row, take instruction slots
+// beside the MMAs (the first suspect; not measured apart). What the
+// design does about that:
+//   * the first port's CTA split: grid (q_pad / qt, m / MT) with the
+//     query-tile axis fastest, so the CTAs resident at one time read
 //     the same vb columns and the re-reads hit L2; a CTA keeps its
 //     accumulators in registers and writes only the final [qt, MT] tiles;
 //   * products on the int8 tensor cores, mma.sync m16n8k32 s8 x s8 -> s32.

@@ -16,256 +16,201 @@
 // low `bits` bits.) The f32 epilogue uses the round-to-nearest intrinsics,
 // so each step rounds as written and the compiler contracts nothing.
 //
-// What bounds it: the same as bucket_scan.cu, whose staging (cp.async
-// double buffering of [KC, MT] chunks), CTA split over the buckets and
-// mma.sync m16n8k16 fragments it keeps unchanged, so the split it measures
-// applies to the production kernel. What it does about that: nothing
-// beyond bucket_scan.cu's design; it is a measurement, not a serving path.
+// What bounds it: the serving scan's bounds (bucket_scan_sm90.cu), since
+// it runs the serving scan's skeleton unchanged (sm90.cuh: a TMA ring of
+// [KC][64] bf16 tiles, the database as the MN-major A operand of wgmma,
+// two consumer warpgroups of up to 128 query rows, the same walk over
+// blocks, slices and K chunks). At the probe's default shape (10M rows,
+// 1024 queries, d_pad 128) its products are 2.6 TFLOP, 2.65 ms at the bf16
+// peak. In NODOT and DMAONLY the ring still streams every tile; the
+// consumers wait, read the norms, release the stage and issue no wgmma. A
+// thread's accumulator covers NQ / 4 query rows, whose qn come from an [R]
+// f32 tile that TMA loads with the query tile. What it does about its
+// bounds: nothing beyond the serving scan's design; it is a measurement of
+// that design, not a serving path.
 
-#include <cuda_bf16.h>
-
-#include "ptx.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace vdb;
+using namespace sm90;
 
 enum Mode { FULL = 0, NOEPI = 1, NODOT = 2, DMAONLY = 3 };
 
-constexpr int MT = 128;       // bucket columns per CTA
-constexpr int KC = 128;       // contraction rows of vb staged per pass
-constexpr int THREADS = 256;  // 8 warps
-constexpr int PAD = 8;        // bf16 row padding of the smem tiles (banks)
-
-template <int MODE, int WM>
-__global__ void __launch_bounds__(THREADS, 2)
-probe_kernel(const float* __restrict__ vn,
-             const __nv_bfloat16* __restrict__ vb,
-             const __nv_bfloat16* __restrict__ q,
-             const float* __restrict__ qn, int* __restrict__ out, int nb,
-             int d_pad, int block, int m, int bits, int qt) {
+template <int MODE, int NQ, int KC>
+__global__ void __launch_bounds__(THREADS, 1)
+probe_kernel(const __grid_constant__ CUtensorMap tm_vb,
+             const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_qn,
+             const float* __restrict__ vn, int* __restrict__ out, int nb,
+             int d_pad, int block, int m, int bits, int q_pad, int cpg,
+             int stages) {
   constexpr bool DOT = MODE == FULL || MODE == NOEPI;
-  constexpr int WN = 8 / WM;
-  constexpr int WCOLS = MT / WN;
-  constexpr int NT = WCOLS / 8;
-  constexpr int ROWS = 16 * WM;
-  constexpr int BS = MT + PAD;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int as = d_pad + PAD;
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + ROWS * as;
-  float* vns = reinterpret_cast<float*>(Bs + 2 * KC * BS);  // [2][MT]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int row0 = blockIdx.x * qt;
+  constexpr int R = 2 * NQ;
+  constexpr int NACC = NQ / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw, d_pad, R, KC * MT * 2, stages, R);
+  const Rows rw = cta_rows(R, q_pad, q_pad, cpg);
   const int c0 = blockIdx.y * MT;
-  const int w = block / m;
-  const int keep = (int)~((1u << bits) - 1u);
+  const Walk wk = walk(nullptr, nb, block, m, d_pad, KC);
+  const int wg = threadIdx.x / 128;
 
-  const int avec = d_pad / 8;
-  for (int i = tid; i < ROWS * avec; i += THREADS) {
-    const int r = i / avec, cv = i - r * avec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < qt)
-      v = *reinterpret_cast<const uint4*>(q + (size_t)(row0 + r) * d_pad +
-                                          cv * 8);
-    *reinterpret_cast<uint4*>(As + r * as + cv * 8) = v;
-  }
-  // |q|^2 of this thread's two rows (g and g + 8 of the warp's 16)
-  const int r_lo = wm * 16 + g;
-  const float qn0 = r_lo < qt ? qn[row0 + r_lo] : 0.f;
-  const float qn1 = r_lo + 8 < qt ? qn[row0 + r_lo + 8] : 0.f;
+  if (threadIdx.x == 0) init_barriers(sm, stages);
+  __syncthreads();
 
-  int acc[NT][4];
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0)
+      produce<R, KC, 2>(sm, &tm_vb, &tm_q, &tm_qn, vn, wk, d_pad, rw.row0,
+                        c0, block, m, stages);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, g = (t % 32) / 4, tq = t % 4;
+    const int keep = (int)~((1u << bits) - 1u);
+    int acc[NACC];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0x7fffffff;
+    for (int i = 0; i < NACC; ++i) acc[i] = 0x7fffffff;
+    // the query norms of acc[4i + e]: row c * NQ + 8i + 2 tq (+1, odd e)
+    const float* qrow = sm.qns + c * NQ + 2 * tq;
 
-  const int nk = (d_pad + KC - 1) / KC;
-  const int total = nb * w * nk;
-
-  auto stage = [&](int s) {
-    const int kci = s % nk, pj = s / nk;
-    const int b = pj / w, j = pj - b * w;
-    const int k0 = kci * KC, kc = min(KC, d_pad - k0);
-    const int col0 = j * m + c0;
-    __nv_bfloat16* dst = Bs + (s & 1) * KC * BS;
-    const __nv_bfloat16* src = vb + ((size_t)b * d_pad + k0) * block + col0;
-    for (int i = tid; i < kc * (MT / 8); i += THREADS) {
-      const int r = i / (MT / 8), cv = i - r * (MT / 8);
-      cp_async16(dst + r * BS + cv * 8, src + (size_t)r * block + cv * 8);
-    }
-    if (kci == 0 && tid < MT / 4)
-      cp_async16(vns + (pj & 1) * MT + tid * 4,
-                 vn + (size_t)b * block + col0 + tid * 4);
-    cp_async_commit();
-  };
-
-  // the older scan's per-slice encode of one score
-  auto enc = [&](float d2, int id) {
-    return (__float_as_int(d2) & keep) | id;
-  };
-  auto full = [&](float v, float p, float qrow) {
-    return __fadd_rn(__fsub_rn(v, __fmul_rn(2.f, p)), qrow);
-  };
-  auto nodot = [&](float v, float qrow) {
-    return __fadd_rn(__fmaf_rn(v, -(2.f * 1.0001f), v), qrow);
-  };
-
-  float prod[NT][4];
-  if (total > 0) stage(0);
-  for (int s = 0; s < total; ++s) {
-    if (s + 1 < total) {
-      stage(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int kci = s % nk, pj = s / nk;
-    const int b = pj / w, j = pj - b * w;
-    const int k0 = kci * KC, kc = min(KC, d_pad - k0);
-    if constexpr (DOT) {
-      if (kci == 0) {
+    consume<NQ, KC, 2, DOT>(
+        sm, wk, c, stages,
+        [&](const float (&prod)[NACC], float v0, float v1, int b, int j) {
+          const int id = b * wk.w + j;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+          for (int i = 0; i < NACC / 4; ++i) {
+            const float2 qn = *reinterpret_cast<const float2*>(qrow + 8 * i);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) prod[nt][i] = 0.f;
-      }
-      const __nv_bfloat16* Bt = Bs + (s & 1) * KC * BS;
-      for (int kk = 0; kk < kc; kk += 16) {
-        uint32_t a[4];
-        ldmatrix_x4(a, As + (wm * 16 + (lane & 15)) * as + k0 + kk +
-                           (lane >> 4) * 8);
-        const __nv_bfloat16* bp = Bt + (kk + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8) * BS +
-                                  wn * WCOLS + (lane >> 4) * 8;
-#pragma unroll
-        for (int nt = 0; nt < NT; nt += 2) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, bp + nt * 8);
-          mma_16816(prod[nt], a, bf);
-          mma_16816(prod[nt + 1], a, bf + 2);
-        }
-      }
-    }
-    if (kci == nk - 1) {
-      const float* vrow = vns + (pj & 1) * MT;
-      const int id = b * w + j;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = wn * WCOLS + nt * 8 + 2 * t;
-        const float v0 = vrow[col], v1 = vrow[col + 1];
-        if constexpr (MODE == FULL) {
-          acc[nt][0] = min(acc[nt][0], enc(full(v0, prod[nt][0], qn0), id));
-          acc[nt][1] = min(acc[nt][1], enc(full(v1, prod[nt][1], qn0), id));
-          acc[nt][2] = min(acc[nt][2], enc(full(v0, prod[nt][2], qn1), id));
-          acc[nt][3] = min(acc[nt][3], enc(full(v1, prod[nt][3], qn1), id));
-        } else if constexpr (MODE == NOEPI) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[nt][i] = min(acc[nt][i], __float_as_int(prod[nt][i]));
-        } else if constexpr (MODE == NODOT) {
-          acc[nt][0] = min(acc[nt][0], enc(nodot(v0, qn0), id));
-          acc[nt][1] = min(acc[nt][1], enc(nodot(v1, qn0), id));
-          acc[nt][2] = min(acc[nt][2], enc(nodot(v0, qn1), id));
-          acc[nt][3] = min(acc[nt][3], enc(nodot(v1, qn1), id));
-        } else {
-          if (j == 0) {
-            acc[nt][0] = min(acc[nt][0], __float_as_int(v0));
-            acc[nt][1] = min(acc[nt][1], __float_as_int(v1));
-            acc[nt][2] = min(acc[nt][2], __float_as_int(v0));
-            acc[nt][3] = min(acc[nt][3], __float_as_int(v1));
+            for (int e = 0; e < 4; ++e) {
+              const int x = 4 * i + e;
+              const float v = (e & 2) ? v1 : v0;
+              const float qr = (e & 1) ? qn.y : qn.x;
+              if constexpr (MODE == FULL) {
+                const float d2 =
+                    __fadd_rn(__fsub_rn(v, __fmul_rn(2.f, prod[x])), qr);
+                acc[x] = min(acc[x], (__float_as_int(d2) & keep) | id);
+              } else if constexpr (MODE == NOEPI) {
+                acc[x] = min(acc[x], __float_as_int(prod[x]));
+              } else if constexpr (MODE == NODOT) {
+                const float d2 =
+                    __fadd_rn(__fmaf_rn(v, -(2.f * 1.0001f), v), qr);
+                acc[x] = min(acc[x], (__float_as_int(d2) & keep) | id);
+              } else if (j == 0) {
+                acc[x] = min(acc[x], __float_as_int(v));
+              }
+            }
           }
-        }
-      }
-    }
-    __syncthreads();  // buffer s & 1 is free for tile s + 2
-  }
+        });
 
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = c0 + wn * WCOLS + nt * 8 + 2 * t;
-    if (r_lo < qt)
-      *reinterpret_cast<int2*>(out + (size_t)(row0 + r_lo) * m + col) =
-          make_int2(acc[nt][0], acc[nt][1]);
-    if (r_lo + 8 < qt)
-      *reinterpret_cast<int2*>(out + (size_t)(row0 + r_lo + 8) * m + col) =
-          make_int2(acc[nt][2], acc[nt][3]);
+    for (int i = 0; i < NACC / 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = c * NQ + 8 * i + 2 * tq + (e & 1);
+        if (r < rw.rows)
+          out[(size_t)(rw.row0 + r) * m + c0 + tile_col<2>(warp, g, e >> 1)] =
+              acc[4 * i + e];
+      }
+    }
   }
 }
 
-template <int MODE, int WM>
-int launch(const float* vn, const __nv_bfloat16* vb, const __nv_bfloat16* q,
-           const float* qn, int* out, int nb, int d_pad, int block, int m,
-           int bits, int q_pad, int qt, size_t smem, cudaStream_t stream) {
+struct Args {
+  CUtensorMap tm_vb, tm_q, tm_qn;
+  const float* vn;
+  int* out;
+  int nb, d_pad, block, m, bits, q_pad, stages;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <int MODE, int NQ, int KC>
+int launch(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
-      probe_kernel<MODE, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      probe_kernel<MODE, NQ, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)a.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(q_pad / qt, m / MT);
-  probe_kernel<MODE, WM><<<grid, THREADS, smem, stream>>>(
-      vn, vb, q, qn, out, nb, d_pad, block, m, bits, qt);
+  const int cpg = (a.q_pad + 2 * NQ - 1) / (2 * NQ);
+  dim3 grid(cpg, a.m / MT);
+  probe_kernel<MODE, NQ, KC><<<grid, THREADS, a.smem, a.stream>>>(
+      a.tm_vb, a.tm_q, a.tm_qn, a.vn, a.out, a.nb, a.d_pad, a.block, a.m,
+      a.bits, a.q_pad, cpg, a.stages);
   return (int)cudaGetLastError();
 }
 
+template <int MODE, int NQ>
+int launch_kc(const Args& a, int kc) {
+  switch (kc) {
+    case 256: return launch<MODE, NQ, 256>(a);
+    case 128: return launch<MODE, NQ, 128>(a);
+    case 64: return launch<MODE, NQ, 64>(a);
+    case 32: return launch<MODE, NQ, 32>(a);
+    case 16: return launch<MODE, NQ, 16>(a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int MODE>
-int launch_m(const float* vn, const __nv_bfloat16* vb,
-             const __nv_bfloat16* q, const float* qn, int* out, int nb,
-             int d_pad, int block, int m, int bits, int q_pad, int qt,
-             size_t smem, cudaStream_t s) {
-  if (qt > 32)
-    return launch<MODE, 4>(vn, vb, q, qn, out, nb, d_pad, block, m, bits,
-                           q_pad, qt, smem, s);
-  if (qt > 16)
-    return launch<MODE, 2>(vn, vb, q, qn, out, nb, d_pad, block, m, bits,
-                           q_pad, qt, smem, s);
-  return launch<MODE, 1>(vn, vb, q, qn, out, nb, d_pad, block, m, bits,
-                         q_pad, qt, smem, s);
+int launch_nq(const Args& a, int nq, int kc) {
+  switch (nq) {
+    case 128: return launch_kc<MODE, 128>(a, kc);
+    case 64: return launch_kc<MODE, 64>(a, kc);
+    case 32: return launch_kc<MODE, 32>(a, kc);
+    case 16: return launch_kc<MODE, 16>(a, kc);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t probe_kernel_ab_smem_bytes(int qt, int d_pad) {
-  const int rows = qt > 32 ? 64 : (qt > 16 ? 32 : 16);
-  return (size_t)rows * (d_pad + PAD) * 2 +
-         2 * ((size_t)KC * (MT + PAD) * 2 + (size_t)MT * 4);
+// Shared memory of a plan: the serving scan's for bf16 tiles, plus the
+// [2 nq] f32 query norms.
+size_t probe_kernel_ab_smem_bytes(int nq, int d_pad, int kc, int stages) {
+  return smem_bytes(2 * nq, d_pad, kc * MT * 2, stages, 2 * nq);
 }
 
-// mode: 0 full, 1 noepi, 2 nodot, 3 dmaonly. qt in {8, 16, 32, 64}
-// divides q_pad; d_pad % 16 == 0, block % m == 0, m % 128 == 0.
-// Returns cudaGetLastError (cudaErrorInvalidValue for an unknown mode).
+// mode: 0 full, 1 noepi, 2 nodot, 3 dmaonly. bf16 vb [nb, d_pad, block],
+// f32 vn [nb, 1, block], bf16 q [q_pad, d_pad], f32 qn [q_pad]; out
+// [q_pad, m] int32. nq in {16, 32, 64, 128}; kc in {16, ..., 256} divides
+// d_pad; m % 64 == 0, block % m == 0. Returns a CUDA error code
+// (CUDA_ERROR_* + 10000 for the tensor-map encoder; cudaErrorInvalidValue
+// for an unknown mode), 0 on success.
 int probe_kernel_ab_launch(int mode, const void* vn, const void* vb,
                            const void* q, const void* qn, void* out, int nb,
                            int d_pad, int block, int m, int bits, int q_pad,
-                           int qt, void* stream) {
-  const size_t smem = probe_kernel_ab_smem_bytes(qt, d_pad);
-  auto* fvn = static_cast<const float*>(vn);
-  auto* fvb = static_cast<const __nv_bfloat16*>(vb);
-  auto* fq = static_cast<const __nv_bfloat16*>(q);
-  auto* fqn = static_cast<const float*>(qn);
-  auto* iout = static_cast<int*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
+                           int nq, int kc, int stages, void* stream) {
+  if (!encode_fn()) return (int)cudaErrorNotSupported;
+  Args a;
+  CUresult res = encode_vb(&a.tm_vb, vb, nb, d_pad, block, kc, 2);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
+  res = encode_q(&a.tm_q, q, q_pad, d_pad, 2 * nq);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
+  // qn as a 1-D tensor in boxes of R: rows past q_pad read 0
+  const cuuint64_t qdim[1] = {(cuuint64_t)q_pad};
+  const cuuint64_t no_stride[1] = {0};
+  const cuuint32_t qbox[1] = {(cuuint32_t)(2 * nq)};
+  const cuuint32_t one[1] = {1};
+  res = encode_fn()(&a.tm_qn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                    const_cast<void*>(qn), qdim, no_stride, qbox, one,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                    CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
+  a.vn = static_cast<const float*>(vn);
+  a.out = static_cast<int*>(out);
+  a.nb = nb, a.d_pad = d_pad, a.block = block, a.m = m, a.bits = bits;
+  a.q_pad = q_pad, a.stages = stages;
+  a.smem = probe_kernel_ab_smem_bytes(nq, d_pad, kc, stages);
+  a.stream = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case FULL:
-      return launch_m<FULL>(fvn, fvb, fq, fqn, iout, nb, d_pad, block, m,
-                            bits, q_pad, qt, smem, s);
-    case NOEPI:
-      return launch_m<NOEPI>(fvn, fvb, fq, fqn, iout, nb, d_pad, block, m,
-                             bits, q_pad, qt, smem, s);
-    case NODOT:
-      return launch_m<NODOT>(fvn, fvb, fq, fqn, iout, nb, d_pad, block, m,
-                             bits, q_pad, qt, smem, s);
-    case DMAONLY:
-      return launch_m<DMAONLY>(fvn, fvb, fq, fqn, iout, nb, d_pad, block, m,
-                               bits, q_pad, qt, smem, s);
+    case FULL: return launch_nq<FULL>(a, nq, kc);
+    case NOEPI: return launch_nq<NOEPI>(a, nq, kc);
+    case NODOT: return launch_nq<NODOT>(a, nq, kc);
+    case DMAONLY: return launch_nq<DMAONLY>(a, nq, kc);
   }
   return (int)cudaErrorInvalidValue;
 }

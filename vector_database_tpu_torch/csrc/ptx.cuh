@@ -1,23 +1,13 @@
-// PTX building blocks shared by the port's sm_90a kernels: warp-level
-// tensor-core products (mma.sync), shared-memory fragment loads
+// PTX building blocks of the exact int8 scan (bucket_scan_i8.cu): warp-level
+// s8 tensor-core products (mma.sync), shared-memory fragment loads
 // (ldmatrix), asynchronous global-to-shared copies (cp.async) and a 4x4
-// byte transpose.
+// byte transpose. The TMA + wgmma kernels take theirs from sm90.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace vdb {
-
-// D = A * B + D, bf16 x bf16 -> f32, one m16n8k16 tile per warp.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // D = A * B + D, s8 x s8 -> s32 (exact), one m16n8k32 tile per warp.
 __device__ __forceinline__ void mma_16832_s8(int c[4], const uint32_t a[4],
@@ -33,15 +23,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
   const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
@@ -72,22 +53,6 @@ __device__ __forceinline__ void transpose_bytes(uint32_t& w0, uint32_t& w1,
   w1 = __byte_perm(t0, t2, 0x7632);
   w2 = __byte_perm(t1, t3, 0x5410);
   w3 = __byte_perm(t1, t3, 0x7632);
-}
-
-// Four signed bytes -> two bf16x2 words (exact for |x| <= 128): each byte,
-// biased to unsigned, becomes the low mantissa of 2^23, and the f32
-// x = (2^23 + u) - (2^23 + 128) keeps at most 8 significant bits, so its
-// upper half is x in bf16. All full-rate integer and f32 operations.
-__device__ __forceinline__ void s8x4_to_bf16x4(uint32_t w, uint32_t& lo,
-                                               uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u, two23 = 0x4b000000u;
-  const float bias = 8388736.0f;  // 2^23 + 128
-  const float x0 = __uint_as_float(__byte_perm(u, two23, 0x7650)) - bias;
-  const float x1 = __uint_as_float(__byte_perm(u, two23, 0x7651)) - bias;
-  const float x2 = __uint_as_float(__byte_perm(u, two23, 0x7652)) - bias;
-  const float x3 = __uint_as_float(__byte_perm(u, two23, 0x7653)) - bias;
-  lo = __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
-  hi = __byte_perm(__float_as_uint(x2), __float_as_uint(x3), 0x7632);
 }
 
 }  // namespace vdb

@@ -8,13 +8,13 @@ and bucket ``c < m`` the minimum over the streamed blocks of
 replaces the score's low ``bits`` bits with the block id. ``vb`` is bf16
 (bf16 packs) or int8 (int8f packs, widened to bf16 in the kernel).
 
-On a CUDA tensor the wrapper launches a kernel (building it with ``nvcc``
-at first use) or raises: bf16 blocks go to ``csrc/bucket_scan_sm90.cu``
-(TMA ring, ``wgmma``, 256-row query tiles; its shapes come from
-``scan_plan``), int8 blocks to ``csrc/bucket_scan.cu``. Each source's
-header says what bounds it on an H100. On a CPU tensor the wrapper runs
-``bucket_scan_reference``, the plain torch loop with the same arguments.
-``bucket_scan.LAUNCHES`` counts the launches on bf16 blocks,
+On a CUDA tensor the wrapper launches ``csrc/bucket_scan_sm90.cu`` (TMA
+ring, ``wgmma``, 256-row query tiles, on the skeleton of
+``csrc/sm90.cuh``; one instantiation per element size), building it with
+``nvcc`` at first use, or raises. Its shapes come from ``scan_plan``; the
+source's header says what bounds it on an H100. On a CPU tensor the
+wrapper runs ``bucket_scan_reference``, the plain torch loop with the same
+arguments. ``bucket_scan.LAUNCHES`` counts the launches on bf16 blocks,
 ``bucket_scan.LAUNCHES_INT8F`` those on int8 blocks.
 """
 
@@ -27,13 +27,15 @@ import torch
 
 from vector_database_tpu_torch.ops import cuda_build
 
-_MT = 128  # the int8f kernel's bucket columns per CTA
-MAX_STAGES = 8  # vb tiles in flight in the bf16 kernel's ring
+MAX_STAGES = 8  # vb tiles in flight in the kernel's ring
 MIN_STAGES = 4
+# the largest contraction chunk per element size: an int8 stage's A
+# fragments live in registers, kc / 4 of them a thread (32 at 128)
+_KC_MAX = {2: 256, 1: 128}
 
 
 class ScanPlan(NamedTuple):
-    """The bf16 kernel's tiling: ``nq`` query rows per consumer warpgroup
+    """The scan kernel's tiling: ``nq`` query rows per consumer warpgroup
     (the CTA holds ``rows = 2 * nq`` against each staged tile), ``kc``
     contraction rows per staged vb tile, ``stages`` tiles in the ring,
     ``smem`` bytes of shared memory a CTA claims."""
@@ -48,80 +50,82 @@ class ScanPlan(NamedTuple):
         return 2 * self.nq
 
 
-def _smem_bytes(nq: int, d_pad: int, kc: int, stages: int) -> int:
-    """``bucket_scan_sm90_smem_bytes`` of the CUDA source: 1024 bytes of
-    alignment slack, the query tile in 64-column boxes of 128-byte rows,
-    the ring of ``[kc, 64]`` bf16 tiles and their 64 f32 norms, and the
+def _smem_bytes(nq: int, d_pad: int, kc: int, stages: int, esize: int = 2,
+                qn_tile: bool = False) -> int:
+    """``smem_bytes`` of ``csrc/sm90.cuh``: 1024 bytes of alignment slack,
+    the query tile in 64-column boxes of 128-byte rows, the ring of
+    ``[kc, 64]`` tiles of ``esize``-byte elements, the probe's ``[2 nq]``
+    f32 query norms (``qn_tile``), each stage's 64 f32 norms, and the
     ring's full/empty barriers plus the query tile's."""
-    return (1024 + -(-d_pad // 64) * 2 * nq * 128 + stages * kc * 128
-            + stages * 64 * 4 + (2 * stages + 1) * 8)
+    rows = 2 * nq
+    return (1024 + -(-d_pad // 64) * rows * 128 + stages * kc * 64 * esize
+            + (rows * 4 if qn_tile else 0) + stages * 64 * 4
+            + (2 * stages + 1) * 8)
 
 
-def scan_plan(rows: int, d_pad: int) -> ScanPlan:
-    """The bf16 kernel's plan for query groups of ``rows`` rows (the
-    block map's ``q_tile``, or ``q_pad`` for a full scan) at ``d_pad``.
+def scan_plan(rows: int, d_pad: int, esize: int = 2,
+              qn_tile: bool = False) -> ScanPlan:
+    """The kernel's plan for query groups of ``rows`` rows (the block
+    map's ``q_tile``, or ``q_pad`` for a full scan) at ``d_pad``, for vb
+    elements of ``esize`` bytes (2 bf16, 1 int8); ``qn_tile`` adds the A/B
+    probe's query norms, which it keeps beside the query tile.
 
     A CTA takes the fewest of 32/64/128/256 query rows that cover a group
     (256 at most: a staged tile then feeds 256 rows), fewer only where the
     query tile and a ring of at least ``MIN_STAGES`` tiles would not fit
     the block's shared memory; ``kc`` is the largest power of two from 16 to
-    256 dividing ``d_pad`` that leaves room for that ring (a power of
-    two: the kernel is compiled for each, so its wgmmas unroll). Raises
-    ``ValueError`` for shapes the kernel cannot take."""
+    256 (128 for int8) dividing ``d_pad`` that leaves room for that ring (a
+    power of two: the kernel is compiled for each, so its wgmmas unroll).
+    Raises ``ValueError`` for shapes the kernel cannot take."""
     if rows < 1:
         raise ValueError(f"scan_plan: rows must be >= 1; got {rows}")
     if d_pad < 16 or d_pad % 16:
         raise ValueError(
-            f"the bf16 kernel needs d_pad % 16 == 0; got d_pad={d_pad}")
+            f"the scan kernel needs d_pad % 16 == 0; got d_pad={d_pad}")
     nq = 16
     while nq < 128 and 2 * nq < rows:
         nq *= 2
-    kcs = [kc for kc in (256, 128, 64, 32, 16) if d_pad % kc == 0]
+    kcs = [kc for kc in (256, 128, 64, 32, 16)
+           if d_pad % kc == 0 and kc <= _KC_MAX[esize]]
     while nq >= 16:
         for kc in kcs:
-            fixed = _smem_bytes(nq, d_pad, kc, 0)
-            per = _smem_bytes(nq, d_pad, kc, 1) - fixed
+            fixed = _smem_bytes(nq, d_pad, kc, 0, esize, qn_tile)
+            per = _smem_bytes(nq, d_pad, kc, 1, esize, qn_tile) - fixed
             stages = min(MAX_STAGES, (cuda_build.SMEM_LIMIT - fixed) // per)
             if stages >= MIN_STAGES:
-                return ScanPlan(nq, kc, stages,
-                                _smem_bytes(nq, d_pad, kc, stages))
+                return ScanPlan(nq, kc, stages, _smem_bytes(
+                    nq, d_pad, kc, stages, esize, qn_tile))
         nq //= 2
     raise ValueError(
-        f"d_pad={d_pad} is too wide for the bf16 kernel: no query tile of "
+        f"d_pad={d_pad} is too wide for the scan kernel: no query tile of "
         f">= 32 rows and a ring of {MIN_STAGES} tiles fit "
         f"{cuda_build.SMEM_LIMIT} bytes of shared memory"
     )
 
 
-def _declare_sm90(lib):
+def check_kernel_shape(d_pad: int, m: int) -> None:
+    """The shapes the sm90 skeleton takes (``bucket_scan_sm90.cu`` and the
+    A/B probe's ``probe_kernel_ab.cu``): whole 16-deep K steps, and a
+    bucket count made of the CTAs' 64-column tiles. Raises ``ValueError``
+    otherwise (the plain versions take any shape)."""
+    if d_pad % 16 or m % 64:
+        raise ValueError(
+            f"the sm90 scan kernels need d_pad % 16 == 0 and m % 64 == 0 (a "
+            f"CTA owns 64 bucket columns); got d_pad={d_pad}, m={m}"
+        )
+
+
+def _declare(lib):
     lib.bucket_scan_sm90_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     )
     lib.bucket_scan_sm90_launch.restype = ctypes.c_int
-    lib.bucket_scan_sm90_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.bucket_scan_sm90_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.bucket_scan_sm90_smem_bytes.restype = ctypes.c_size_t
 
 
-def _declare_int8f(lib):
-    lib.bucket_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    )
-    lib.bucket_scan_launch.restype = ctypes.c_int
-    lib.bucket_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.bucket_scan_smem_bytes.restype = ctypes.c_size_t
-
-
-def _load_sm90():
-    return cuda_build.load("bucket_scan_sm90", _declare_sm90)
-
-
-def _load_int8f():
-    return cuda_build.load("bucket_scan", _declare_int8f)
-
-
 def _load():
-    """Both libraries: ``(bucket_scan_sm90, bucket_scan)``."""
-    return _load_sm90(), _load_int8f()
+    return cuda_build.load("bucket_scan_sm90", _declare)
 
 
 def _check(vn, vb, q, m, bmap, nprobe, q_tile):
@@ -197,32 +201,21 @@ def bucket_scan(vn, vb, q, *, m, bits, bmap=None, nprobe=None, q_tile=None):
     if any(x.device != q.device or not x.is_contiguous() for x in tensors):
         raise ValueError("bucket_scan: inputs must be contiguous, one device")
     nb, d_pad, block = vb.shape
-    if d_pad % 16 or m % _MT:
-        raise ValueError(
-            f"the CUDA kernels need d_pad % 16 == 0 and m % {_MT} == 0; got "
-            f"d_pad={d_pad}, m={m}"
-        )
+    check_kernel_shape(d_pad, m)
+    esize = vb.element_size()
     q_pad = q.shape[0]
+    plan = scan_plan(q_tile or q_pad, d_pad, esize)
     out = torch.empty((q_pad, m), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (vn.data_ptr(), vb.data_ptr(), q.data_ptr(),
             None if bmap is None else bmap.data_ptr(), out.data_ptr())
     shape = (nb, d_pad, block, m, bits, q_pad, q_tile or q_pad,
              0 if bmap is None else bmap.shape[1], nprobe or 0)
-    if vb.dtype == torch.bfloat16:
-        plan = scan_plan(q_tile or q_pad, d_pad)
-        err = _load_sm90().bucket_scan_sm90_launch(
-            *ptrs, *shape, plan.nq, plan.kc, plan.stages, stream)
-    else:
-        # the int8f kernel's query tile divides q_pad, or q_tile
-        lib = _load_int8f()
-        qt = cuda_build.pick_qt(
-            q_tile or q_pad, lambda qt: lib.bucket_scan_smem_bytes(qt, d_pad))
-        err = lib.bucket_scan_launch(*ptrs, *shape[:6], qt, *shape[6:],
-                                     stream)
+    err = _load().bucket_scan_sm90_launch(
+        *ptrs, *shape, plan.nq, plan.kc, plan.stages, esize, stream)
     if err:
         raise RuntimeError(f"bucket_scan launch failed: CUDA error {err}")
-    if vb.dtype == torch.bfloat16:
+    if esize == 2:
         bucket_scan.LAUNCHES += 1
     else:
         bucket_scan.LAUNCHES_INT8F += 1
