@@ -6,17 +6,19 @@
 Phases (each raises on failure; nothing is caught):
 
 1. build the three CUDA sources from ``vector_database_tpu_torch/csrc``
-   (``bucket_scan_sm90.cu``, the scan of bf16 and int8f packs, and
-   ``probe_kernel_ab.cu``, the A/B probe, both on the Hopper skeleton of
-   ``sm90.cuh``; ``bucket_scan_i8.cu``, the exact int8 scan), one
+   (``bucket_scan_sm90.cu``, the scan of bf16 and int8f packs,
+   ``bucket_scan_i8.cu``, the exact int8 scan, and ``probe_kernel_ab.cu``,
+   the A/B probe, all on the Hopper skeleton of ``sm90.cuh``), one
    ``nvcc`` each, all at once;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
-   centres uniform in [-1, 1], sigma 0.05): fused build (leaf 16), pack
-   (4096 buckets), ``PackedServer`` full scan and pruned scans at probes
-   192/256/320, q=4096, recall@10 against the exact oracle on 1024
-   queries; the bf16 kernel's launch count must rise;
+   centres uniform in [-1, 1], sigma 0.05): fused build (leaf 16), the
+   same build again on the same input (the node tables must be equal
+   field by field), pack (4096 buckets), ``PackedServer`` full scan and
+   pruned scans at probes 192/256/320, q=4096, recall@10 against the
+   exact oracle on 1024 queries; the bf16 kernel's launch count must
+   rise;
 4. the bf16 kernel against its plain torch version at the main path's
    shapes (full and pruned), with the two bitwise equalities of the
    pruned path (probes = nb equals the full scan; runtime probes equal
@@ -27,18 +29,26 @@ Phases (each raises on failure; nothing is caught):
 6. the int8 and int8f packs of the same 10M x 96 leaf-major matrix: pack
    time, block bytes (half the bf16 pack's) and scale; ``PackedServer``
    full scans over both (recall@10 >= 0.90) and pruned int8f scans at
-   probes 192/256/320; the exact int8 kernel bitwise equal to its plain
-   version, the int8f route of ``bucket_scan_sm90.cu`` (full, and pruned
-   to 256 blocks) within the bf16 tolerance (also on an int8f pack with a
-   seeded 1% of rows masked), and the pruned int8f equalities of phase 4;
-   both launch counts must rise;
-7. the A/B scan probe: each mode bitwise equal to its plain version on
+   probes 192/256/320; the exact int8 kernel (K-major blocks, s8
+   ``wgmma``) bitwise equal to its plain version, with its bound and the
+   ``torch._int_mm`` yardstick; the int8f route of ``bucket_scan_sm90.cu``
+   (full, and pruned to 256 blocks) within the bf16 tolerance (also on an
+   int8f pack with a seeded 1% of rows masked), and the pruned int8f
+   equalities of phase 4; both launch counts must rise;
+7. bucket counts no 64-column tile divides: ``pack_database(buckets=
+   1000)`` (block 1000 by the default rule) of 1M x 96 clustered rows in
+   bf16, int8f and int8, each served by ``PackedServer`` (recall@10
+   against the exact oracle, the floors of phases 3 and 6); every scan
+   kernel's launch count must rise; then each kernel against its plain
+   version at m = 1000 (bitwise for the exact int8 scan and, on small
+   integers, the probe; within the bf16 tolerance for the float scans);
+8. the A/B scan probe: each mode bitwise equal to its plain version on
    small integers at 3 blocks, then its entry point times the four modes
    at 10M rows and 1024 queries (its JSON lines), and ``full`` is held
    bitwise to its plain version at that size, on small integers; then
    the four modes are timed again at the serving batch, q=4096, beside
    the scan kernel of phase 4 (the ``split_q4096_ms`` field);
-8. the mutable collections. (a) ``DynamicIndex`` over the same 10M x 96
+9. the mutable collections. (a) ``DynamicIndex`` over the same 10M x 96
    rows: construction, a packed batch, ``remove_ids`` of a seeded 1% and
    10,000 adds kept in the delta, packed full and pruned (256) batches
    over the masked pack (QPS; recall@10 >= 0.98 against the live rows),
@@ -51,7 +61,7 @@ Phases (each raises on failure; nothing is caught):
    ``search_batch`` equal to the oracles, 1,000 adds served from the
    delta without a rebuild. The kernel's launch count must rise in each.
 
-It prints the card's name and power limit, one JSON line of phase-8
+It prints the card's name and power limit, one JSON line of phase-9
 results, one JSON line of kernel results (each kernel with its time, its
 plain version's, its bound from this run's shapes and the card's
 published peaks, the library yardstick, TFLOP/s and share of the bound),
@@ -71,6 +81,7 @@ LEAF, BUCKETS, TRUTH_Q = 16, 4096, 1024
 PROBES = (192, 256, 320)
 TREE_N, TREE_D = 1_000_000, 8
 REMOVE, ADD, EXACT_Q, PROBE = N // 100, 10_000, 256, 256
+TAIL_N, TAIL_BUCKETS, TAIL_Q = 1_000_000, 1000, 1024
 STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
 REPS = 3
 DEVICE = "cuda"
@@ -199,16 +210,31 @@ def _matmul_ms(q, vb, blocks):
 
 def _int_mm_ms(qi, vb, blocks):
     """Library yardstick of the exact int8 scan: ``torch._int_mm`` per
-    block (int8 x int8 -> int32 products), scaled to ``blocks``; None
-    where the call does not take these shapes on this build."""
+    block (int8 x int8 -> int32 products) against the K-major blocks as
+    they lie (``vb[b].T``, or a contiguous copy made before the clock
+    starts where the call refuses that layout), scaled to ``blocks``;
+    None where the call takes neither."""
     import torch
 
-    try:
-        t = _ms(lambda: [torch._int_mm(qi, vb[b]) for b in
-                         range(LIB_BLOCKS)], REPS)
-    except RuntimeError:
-        return None
-    return t * blocks / LIB_BLOCKS
+    mats = [vb[b].T for b in range(LIB_BLOCKS)]
+    for layout in (mats, [x.contiguous() for x in mats]):
+        try:
+            t = _ms(lambda: [torch._int_mm(qi, x) for x in layout], REPS)
+        except RuntimeError:
+            continue
+        return t * blocks / LIB_BLOCKS
+    return None
+
+
+def _same_tree(a, b):
+    """Two ``BSPIndex`` node tables equal field by field, bit for bit."""
+    import torch
+
+    fields = ("dim", "mid", "low", "high", "leaf_start", "leaf_count",
+              "orig_row")
+    return (a.depth, a.num_leaves) == (b.depth, b.num_leaves) and all(
+        torch.equal(getattr(a, f).view(torch.int32),
+                    getattr(b, f).view(torch.int32)) for f in fields)
 
 
 def _host_ms(fn, reps):
@@ -374,7 +400,7 @@ def _dynamic_phase(dev):
     del idx
 
     # the kernel alone on the masked norm row, full and pruned
-    d_pad = masked.vb.shape[1]
+    d_pad = masked.d_pad
     qb = torch.zeros((Q, d_pad), device=dev)
     qb[:, :D] = test
     qb = qb.bfloat16()
@@ -511,6 +537,94 @@ def _store_phase(dev):
     return out
 
 
+def _tail_phase(dev):
+    """Phase 7: ``pack_database(buckets=TAIL_BUCKETS)`` of TAIL_N x D rows
+    (block 1000 by the default rule: the grid's last CTA takes a partial
+    64-column tile, and int8f rows of 1000 bytes are padded to 1008) in
+    bf16, int8f and int8, served through ``PackedServer``; then each
+    kernel against its plain version at m = 1000 on TAIL_Q queries."""
+    import torch
+
+    from vector_database_tpu_torch import PackedServer, exact_knn, pack_database
+    from vector_database_tpu_torch.benchmarks import probe_kernel_ab as pab
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
+    from vector_database_tpu_torch.ops.packed_knn import _scan_queries
+
+    out = {}
+    train, test, _, g = _clustered(dev, TAIL_N, SEED + 6)
+    truth = exact_knn(train, test[:TRUTH_Q], k=K)[0]
+    packs = {}
+    torch.cuda.synchronize()
+    bs.bucket_scan.LAUNCHES = bs.bucket_scan.LAUNCHES_INT8F = 0
+    bi.bucket_scan_i8.LAUNCHES = 0
+    for dtype, floor in (("bfloat16", 0.98), ("int8f", 0.90), ("int8", 0.90)):
+        p = pack_database(train, buckets=TAIL_BUCKETS, dtype=dtype)
+        if not p.m == p.block == TAIL_BUCKETS:
+            raise AssertionError(f"{dtype} pack: m {p.m}, block {p.block}")
+        srv = PackedServer(p, k=K, batch=Q)
+        srv.warmup()
+        ms = _ms(lambda: srv.query(test), REPS)
+        rec = _recall(srv.query(test)[0][:TRUTH_Q], truth)
+        out[dtype] = dict(ms=ms, qps=Q / ms * 1e3, recall=rec)
+        print(f"[tail] {dtype} pack of {TAIL_N}x{D}, buckets "
+              f"{TAIL_BUCKETS}: m {p.m}, block {p.block}, row stride of vb "
+              f"{bs.row_stride(p.vb)}; full scan q={Q}: {ms:.3f} ms, "
+              f"{Q / ms * 1e3:.1f} QPS, recall@{K} {rec:.4f}")
+        if rec < floor:
+            raise AssertionError(f"{dtype} recall@{K} at m = {p.m}: {rec} "
+                                 f"< {floor}")
+        packs[dtype] = p
+    torch.cuda.synchronize()
+    out["launches"] = dict(bucket_scan=bs.bucket_scan.LAUNCHES,
+                           bucket_scan_int8f=bs.bucket_scan.LAUNCHES_INT8F,
+                           bucket_scan_i8=bi.bucket_scan_i8.LAUNCHES)
+    if min(out["launches"].values()) < 1:
+        raise AssertionError(f"m = {TAIL_BUCKETS} launches: {out['launches']}")
+
+    # each kernel against its plain version at m = 1000
+    p16 = packs["bfloat16"]
+    qp = torch.zeros((TAIL_Q, p16.d_pad), device=dev)
+    qp[:, :D] = test[:TAIL_Q]
+    for dtype in ("bfloat16", "int8f"):
+        p = packs[dtype]
+        qs = _scan_queries(p, qp)
+        args = dict(m=p.m, bits=p.bits)
+        err, mis = _compare_acc(bs.bucket_scan(p.vn, p.vb, qs, **args),
+                                bs.bucket_scan_reference(p.vn, p.vb, qs,
+                                                         **args), p, qs)
+        out[dtype].update(max_abs_err=err, block_id_ties=mis)
+    p8 = packs["int8"]
+    qi = _scan_queries(p8, qp)
+    sk, ik = bi.bucket_scan_i8(p8.vn, p8.vb, qi, m=p8.m)
+    sp, ip = bi.bucket_scan_i8_reference(p8.vn, p8.vb, qi, m=p8.m)
+    out["int8"]["max_abs_err"] = float((sk - sp).abs().max())
+    if not (torch.equal(sk, sp) and torch.equal(ik, ip)):
+        raise AssertionError("i8 kernel != plain at m = 1000")
+    small = dict(generator=g, device=dev)
+    vb3 = torch.randint(-2, 3, (3, pab.D_PAD, TAIL_BUCKETS),
+                        **small).bfloat16()
+    vn3 = torch.randint(0, 9, (3, 1, TAIL_BUCKETS), **small).float()
+    q3 = torch.randint(-2, 3, (256, pab.D_PAD), **small).bfloat16()
+    qn3 = torch.randint(0, 9, (256, 1), **small).float()
+    args3 = dict(m=TAIL_BUCKETS, bits=pab.id_bits(3, 1))
+    ab_k = pab.probe_kernel_ab("full", vn3, vb3, q3, qn3, **args3)
+    ab_p = pab.probe_kernel_ab_reference("full", vn3, vb3, q3, qn3, **args3)
+    out["probe_max_abs_err"] = float((ab_k.double() - ab_p.double())
+                                     .abs().max())
+    if not torch.equal(ab_k, ab_p):
+        raise AssertionError("A/B probe kernel != plain at m = 1000")
+    print(f"[tail] m = {TAIL_BUCKETS}, {TAIL_Q} queries: bf16 and int8f "
+          f"kernels within the tolerance of plain (max |score err| "
+          f"{out['bfloat16']['max_abs_err']:.3g} / "
+          f"{out['int8f']['max_abs_err']:.3g}, block-id ties "
+          f"{out['bfloat16']['block_id_ties']:.2e} / "
+          f"{out['int8f']['block_id_ties']:.2e}); i8 kernel scores and ids "
+          f"bitwise equal; probe full bitwise equal on small integers; "
+          f"launches while serving {out['launches']}")
+    return out
+
+
 def main():
     import torch
 
@@ -555,9 +669,9 @@ def main():
     cuda_build.build("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab")
     for mod in (bs, bi, pab):
         mod._load()
-    print(f"[build] bucket_scan_sm90.cu, bucket_scan_i8.cu, "
-          f"probe_kernel_ab.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[build] vector_database_tpu_torch/csrc: bucket_scan_sm90.cu, "
+          f"bucket_scan_i8.cu, probe_kernel_ab.cu (each with sm90.cuh), one "
+          f"nvcc each, built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 2. exactness where the scan is exact (n <= buckets) ------------
     g = torch.Generator(device=dev).manual_seed(42)
@@ -581,10 +695,20 @@ def main():
     index = build_index_fused(train, leaf_size=LEAF)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    del train
     print(f"[main] build {N}x{D} leaf {LEAF}: {build_s:.3f} s, "
           f"{N / build_s:.1f} vectors/s, depth {index.depth}, "
           f"{index.num_leaves} leaves")
+    t0 = time.perf_counter()
+    again = build_index_fused(train, leaf_size=LEAF)
+    torch.cuda.synchronize()
+    build2_s = time.perf_counter() - t0
+    del train
+    print(f"[main] the same build again: {build2_s:.3f} s, "
+          f"{again.num_leaves} leaves (first {index.num_leaves})")
+    if not _same_tree(index, again):
+        raise AssertionError("two builds of one input gave two trees")
+    print("[main] the two builds' node tables are equal field by field")
+    del again
 
     t0 = time.perf_counter()
     pack = pack_database(index.vectors, buckets=BUCKETS)
@@ -592,7 +716,7 @@ def main():
     pack_s = time.perf_counter() - t0
     nb = pack.vb.shape[0]
     print(f"[main] pack: {pack_s:.3f} s, nb={nb} block={pack.block} "
-          f"m={pack.m} d_pad={pack.vb.shape[1]} bits={pack.bits}")
+          f"m={pack.m} d_pad={pack.d_pad} bits={pack.bits}")
 
     truth = exact_knn(index.vectors, test[:TRUTH_Q], k=K)[0]
     results = {}
@@ -622,7 +746,7 @@ def main():
     print(f"[main] bucket_scan launches on the main path: {launches}")
 
     # ---- 4. kernel vs plain at the main path's shapes -------------------
-    d_pad, q_tile = pack.vb.shape[1], 512
+    d_pad, q_tile = pack.d_pad, 512
     qb = torch.zeros((Q, d_pad), device=dev)
     qb[:, :D] = test
     qb = qb.bfloat16()
@@ -780,11 +904,11 @@ def main():
         p8.vn, p8.vb, qi, m=p8.m), REPS)
     i8_k = _numbers(i8_ms, full_ops, _nbytes(p8.vb, p8.vn, qi, sk, ik),
                     PEAK_INT8, _int_mm_ms(qi, p8.vb, nb))
-    print(f"[int8] i8 kernel {Q}x{nb} blocks: kernel {i8_ms:.3f} ms, plain "
-          f"{i8_plain_ms:.3f} ms, scores and block ids bitwise equal; "
-          f"bound {i8_k['bound_ms']:.3f} ms ({i8_k['bound_by']}), "
-          f"{i8_k['pct_of_bound']:.1f}% of bound; torch._int_mm "
-          f"{i8_k['library_ms']}")
+    print(f"[int8] i8 kernel {Q}x{nb} K-major blocks: kernel {i8_ms:.3f} "
+          f"ms, plain {i8_plain_ms:.3f} ms, scores and block ids bitwise "
+          f"equal; bound {i8_k['bound_ms']:.3f} ms ({i8_k['bound_by']}), "
+          f"{i8_k['tflops']:.1f} TOP/s, {i8_k['pct_of_bound']:.1f}% of "
+          f"bound; torch._int_mm {i8_k['library_ms']}")
     del sk, ik, sp, ip
 
     qf = _scan_queries(p8f, qp)
@@ -850,7 +974,11 @@ def main():
     del full, pruned, srv, pruned8, pack, packs, p8, p8f, p8m, index
     del acc_k, acc_p, acc_all, pk, pp
 
-    # ---- 7. the A/B scan probe -------------------------------------------
+    # ---- 7. bucket counts no 64-column tile divides ---------------------
+    tail = _tail_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 8. the A/B scan probe -------------------------------------------
     w_ab = pab.BLOCK // pab.M
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     small = dict(generator=g, device=dev)
@@ -920,16 +1048,17 @@ def main():
     del vn_ab, vb_ab, q_ab, qn_ab
     torch.cuda.empty_cache()
 
-    # ---- 8. the mutable collections ----------------------------------------
+    # ---- 9. the mutable collections ----------------------------------------
     dyn = _dynamic_phase(dev)
     store = _store_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
-        pack_s=pack_s, **{f"{key}_{f}": val
+        build_again_s=build2_s, pack_s=pack_s, **{f"{key}_{f}": val
                           for key, r in results.items()
                           for f, val in r.items()},
     )}))
+    print(json.dumps({"tail_m1000": tail}))
     print(json.dumps({"mutable": dict(dynamic=dyn, store=store)}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
@@ -953,6 +1082,8 @@ def main():
         "masked_pruned256_ms": dyn["kernel_masked_pruned256_ms"],
         "masked_pruned256_plain_ms":
             dyn["kernel_masked_pruned256_plain_ms"],
+        "m1000_launches": tail["launches"]["bucket_scan"],
+        "m1000_max_abs_err": tail["bfloat16"]["max_abs_err"],
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",
@@ -966,6 +1097,8 @@ def main():
         "plain_ms": i8f_plain_ms,
         "pruned256": dict(i8p_k, max_abs_err=i8p_err, plain_ms=i8p_plain_ms),
         "masked_max_abs_err": i8m_err,
+        "m1000_launches": tail["launches"]["bucket_scan_int8f"],
+        "m1000_max_abs_err": tail["int8f"]["max_abs_err"],
     }, {
         "name": "bucket_scan_i8",
         "route": "cuda",
@@ -975,6 +1108,8 @@ def main():
         "max_abs_err": i8_err,
         **i8_k,
         "plain_ms": i8_plain_ms,
+        "m1000_launches": tail["launches"]["bucket_scan_i8"],
+        "m1000_max_abs_err": tail["int8"]["max_abs_err"],
     }, {
         "name": "probe_kernel_ab",
         "route": "cuda",
@@ -986,6 +1121,7 @@ def main():
         "plain_ms": ab_plain_ms,
         "modes_ms": {r["mode"]: r["ms_per_1024q"] for r in ab},
         "split_q4096_ms": split,
+        "m1000_max_abs_err": tail["probe_max_abs_err"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,14 +1,18 @@
-"""The scan kernel's host-side contracts, on the CPU.
+"""The scan kernels' host-side contracts, on the CPU.
 
-The kernel itself (``csrc/bucket_scan_sm90.cu`` on the skeleton of
-``csrc/sm90.cuh``, for bf16 and int8f packs) runs only on the card
-(``tests/test_torch_cuda.py``); what it rests on is checked here:
+The kernels (``csrc/bucket_scan_sm90.cu`` for bf16 and int8f packs and
+``csrc/bucket_scan_i8.cu`` for pure-int8 packs, on the skeleton of
+``csrc/sm90.cuh``) run only on the card (``tests/test_torch_cuda.py``);
+what they rest on is checked here:
 
-- the fold identity that lets it keep one running minimum per output
-  element instead of per-slice minima;
-- the tile and shared-memory plan that sizes its CTAs (``scan_plan``, for
-  bf16 and int8 tiles) and the rows each CTA takes, as the kernel derives
-  them, and the shapes the kernel takes (``check_kernel_shape``);
+- the fold identity that lets the float scan keep one running minimum per
+  output element instead of per-slice minima, and the strict per-slice
+  fold of the exact scan, mirrored in numpy against its plain version;
+- the tile and shared-memory plans that size their CTAs (``scan_plan``,
+  for bf16 and int8 tiles; ``i8_plan``) and the rows each CTA takes, as
+  the kernel derives them, the shapes the kernels take
+  (``check_kernel_shape``) and the row layout their TMA maps read
+  (``row_stride``, ``pad_rows``);
 - the int8 tiles' path into the tensor cores, mirrored in numpy: the
   widening of int8 to bf16, and the fragments each thread loads from the
   swizzled tile, whose rows stand for the bucket columns that the norm
@@ -24,6 +28,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from vector_database_tpu_torch.ops import bucket_scan as tbs
+from vector_database_tpu_torch.ops import bucket_scan_i8 as tbi
 from vector_database_tpu_torch.ops import cuda_build
 from vector_database_tpu_torch.utils.device import resolve_device
 
@@ -133,18 +138,186 @@ def test_int8_plan_of_the_main_path():
 
 
 @pytest.mark.parametrize("d_pad,m", [(128, 64), (96, 192), (128, 4096),
-                                     (16, 128)])
+                                     (16, 128), (128, 96), (128, 32),
+                                     (128, 1000), (128, 125)])
 def test_kernel_shape_check_takes_64_column_tiles(d_pad, m):
-    """A CTA owns 64 bucket columns, so ``buckets`` counts such as 64 and
-    192 are served on the card (the first int8f kernel wanted 128)."""
+    """A CTA owns 64 bucket columns and the grid takes ceil(m / 64) of
+    them, the last one partial, so any bucket count is served on the card:
+    multiples of 64 as before, and 96, 32, 1000 (the default block of
+    ``buckets=1000``) or 125 (which no power of two divides)."""
     tbs.check_kernel_shape(d_pad, m)
 
 
-@pytest.mark.parametrize("d_pad,m", [(128, 96), (128, 32), (100, 64),
-                                     (8, 64)])
-def test_kernel_shape_check_refuses_what_the_kernel_cannot_take(d_pad, m):
-    with pytest.raises(ValueError, match="m % 64 == 0"):
+@pytest.mark.parametrize("d_pad,m,msg", [
+    (100, 64, "d_pad % 16 == 0"), (8, 64, "d_pad % 16 == 0"),
+    (128, 0, "1 <= m"), (128, 64 * 65535 + 1, "1 <= m")])
+def test_kernel_shape_check_refuses_what_the_kernel_cannot_take(d_pad, m,
+                                                                 msg):
+    """Partial 16-deep K steps, and bucket counts the grid's bucket axis
+    (at most 65535 CTAs) cannot hold."""
+    with pytest.raises(ValueError, match=msg):
         tbs.check_kernel_shape(d_pad, m)
+
+
+@pytest.mark.parametrize("dtype,width", [
+    (torch.int8, 1000), (torch.bfloat16, 1000), (torch.float32, 125),
+    (torch.int32, 8192), (torch.int8, 96)])
+def test_pad_rows_starts_every_row_on_16_bytes(dtype, width):
+    """``pad_rows`` keeps the values and gives rows of ``row_pitch`` (a
+    multiple of 16) elements, which ``row_stride`` accepts; a tensor whose
+    rows already qualify comes back as it is."""
+    x = torch.arange(2 * 3 * width).reshape(2, 3, width).to(dtype)
+    p = tbs.pad_rows(x)
+    assert torch.equal(p, x)
+    assert tbs.row_stride(p) == tbs.row_pitch(width) == -(-width // 16) * 16
+    assert tbs.row_stride(p) * p.element_size() % 16 == 0
+    assert (p is x) == (width % 16 == 0)
+
+
+@pytest.mark.parametrize("x", [
+    torch.zeros((2, 3, 1000), dtype=torch.int8),    # rows of 1000 bytes
+    torch.zeros((2, 1, 125), dtype=torch.float32),  # norm rows of 500 bytes
+    torch.zeros((2, 1000, 3), dtype=torch.int8).transpose(1, 2),
+    torch.zeros((2, 3, 1000), dtype=torch.bfloat16)[:, :, 1:],
+])
+def test_row_stride_refuses_rows_tma_cannot_read(x):
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        tbs.row_stride(x)
+
+
+@pytest.mark.parametrize("m,block,esizes,aligned", [
+    (4096, 8192, (2, 4), True), (96, 960, (1, 4), True),
+    (1000, 1000, (1, 4), True), (125, 1000, (2, 4), False),
+    (200, 1000, (2, 4), True), (250, 1000, (4,), False),
+    (8, 8192, (1, 4), False), (8, 8192, (2, 4), True), (4, 64, (4,), True)])
+def test_slices_aligned(m, block, esizes, aligned):
+    """A slice starts at j * m columns: on a 16-byte boundary for every
+    element size along the block axis, or the kernels' TMA boxes cannot
+    start there (m 125 and 250 in blocks of 1000 fault on the card, 200
+    and 500 do not). A lone slice starts at 0."""
+    assert tbs.slices_aligned(m, block, *esizes) is aligned
+
+
+@pytest.mark.parametrize("m,block", [(125, 1000), (250, 1000), (4, 16),
+                                     (6, 48)])
+def test_pad_slices_keeps_every_bucket(m, block):
+    """Where slices are off 16-byte boundaries the wrappers scan a copy in
+    slices of ``row_pitch(m)`` columns at that bucket count: its first m
+    columns equal the scan of the original bit for bit, for the float
+    scan (full and pruned), the exact int8 scan (K-major: the block axis
+    is 1) and the A/B probe's modes."""
+    from vector_database_tpu_torch.benchmarks import probe_kernel_ab as tab
+
+    rng = np.random.default_rng(m)
+    nb, d, q = 3, 32, 16
+    mp = tbs.row_pitch(m)
+    vb = torch.from_numpy(rng.integers(-3, 4, (nb, d, block), dtype=np.int8))
+    vn = torch.from_numpy(rng.integers(0, 20, (nb, 1, block))).float()
+    qb = torch.from_numpy(rng.integers(-3, 4, (q, d))).bfloat16()
+    pv, pb = tbs.pad_slices(vn, m, 2), tbs.pad_slices(vb.bfloat16(), m, 2)
+    assert pb.shape == (nb, d, block // m * mp)
+    assert torch.equal(pb.unflatten(2, (block // m, mp))[..., :m],
+                       vb.bfloat16().unflatten(2, (block // m, m)))
+    bmap = torch.tensor([[2, 0], [1, 2]], dtype=torch.int32)
+    for kw in (dict(bits=2), dict(bits=2, bmap=bmap, nprobe=2, q_tile=8)):
+        want = tbs.bucket_scan_reference(vn, vb.bfloat16(), qb, m=m, **kw)
+        got = tbs.bucket_scan_reference(pv, pb, qb, m=mp, **kw)[:, :m]
+        assert torch.equal(got, want)
+    vk = vb.transpose(1, 2).contiguous()  # a K-major pure-int8 pack
+    vn2 = vn.int()
+    qi = torch.from_numpy(rng.integers(-3, 4, (q, d), dtype=np.int8))
+    want = tbi.bucket_scan_i8_reference(vn2, vk, qi, m=m)
+    got = tbi.bucket_scan_i8_reference(tbs.pad_slices(vn2, m, 2),
+                                       tbs.pad_slices(vk, m, 1), qi, m=mp)
+    assert all(torch.equal(g[:, :m], w) for g, w in zip(got, want))
+    qn = torch.from_numpy(rng.integers(0, 9, (q, 1))).float()
+    bits = tab.id_bits(nb, block // m)
+    for mode in tab.MODES:
+        want = tab.probe_kernel_ab_reference(mode, vn, vb.bfloat16(), qb, qn,
+                                             m=m, bits=bits)
+        got = tab.probe_kernel_ab_reference(mode, pv, pb, qb, qn, m=mp,
+                                            bits=bits)
+        assert torch.equal(got[:, :m], want), mode
+
+
+@pytest.mark.parametrize("rows", [8, 104, 256, 4096])
+@pytest.mark.parametrize("d_pad", [32, 96, 128, 160, 1536])
+def test_i8_plan_fits_and_matches_its_smem_sum(rows, d_pad):
+    """The exact scan's plan: [64][128 B] int8 tiles (a chunk past d_pad
+    reads TMA's zero fill, so any d_pad % 16 == 0 is taken) and int8
+    query rows of 128 columns; the sum is ``smem_bytes`` of
+    ``csrc/sm90.cuh`` with 1-byte query elements."""
+    plan = tbi.i8_plan(rows, d_pad)
+    assert plan.kc == tbi.KC == 128
+    assert plan.smem <= cuda_build.SMEM_LIMIT
+    assert tbs.MIN_STAGES <= plan.stages <= tbs.MAX_STAGES
+    nkq = -(-d_pad // 128)
+    assert plan.smem == (1024 + nkq * plan.rows * 128 + plan.stages * 8192
+                         + plan.stages * 256 + (2 * plan.stages + 1) * 8)
+    assert plan.smem == tbs._smem_bytes(plan.nq, d_pad, 128, plan.stages, 1,
+                                        qsize=1)
+    assert plan.stages == tbs.MAX_STAGES or tbs._smem_bytes(
+        plan.nq, d_pad, 128, plan.stages + 1, 1, qsize=1) > \
+        cuda_build.SMEM_LIMIT
+    if d_pad <= 256:  # narrow rows: the tallest tile that covers the rows
+        assert plan.rows == min(256, max(32, 1 << (rows - 1).bit_length()))
+
+
+def test_i8_plan_of_the_main_path():
+    """10M x 96 padded to 128 at q=4096: 256-row CTAs (16 per 64 bucket
+    columns, so the blocks cross L2 -> shared memory 16 times: 20.5 GB), one
+    8 KB tile a slice in an 8-deep ring, a 32 KB query tile."""
+    plan = tbi.i8_plan(4096, 128)
+    assert plan == tbs.ScanPlan(128, 128, 8, 101512)
+    assert len(_cta_rows(plan, 4096, None)) == 16
+    with pytest.raises(ValueError, match="d_pad % 16"):
+        tbi.i8_plan(64, 100)
+
+
+def _strict_fold(vn, vb, q, m):
+    """Mirror of ``bucket_scan_i8.cu``'s epilogue: every slice of every
+    block folds straight into the running minimum in walk order (block by
+    block, slice by slice), and only a strictly smaller score moves the
+    block id: ``x = prod + vn2; better = x < acc; acc = better ? x : acc;
+    id = better ? b : id``. int64 holds every sum exactly."""
+    vn, vb, q = (np.asarray(a, np.int64) for a in (vn, vb, q))
+    nb, block, _ = vb.shape
+    acc = np.full((q.shape[0], m), 2 ** 31 - 1, np.int64)
+    ids = np.zeros((q.shape[0], m), np.int64)
+    for b in range(nb):
+        s = q @ vb[b].T + vn[b]  # [q, block]
+        for j in range(block // m):
+            x = s[:, j * m:(j + 1) * m]
+            better = x < acc
+            acc = np.where(better, x, acc)
+            ids = np.where(better, b, ids)
+    return acc, ids
+
+
+@pytest.mark.parametrize("m,block,d_pad", [(64, 256, 32), (125, 1000, 32),
+                                           (96, 384, 160)])
+def test_strict_slice_fold_equals_the_plain_version(m, block, d_pad):
+    """On tie-heavy data (values in [-2, 2]: many blocks reach a bucket's
+    minimum) the per-slice strict fold gives ``bucket_scan_i8_reference``'s
+    min over slices, then strict compare per block, bit for bit: the first
+    (block, slice) in walk order to reach the minimum lies in the first
+    block whose own minimum equals it."""
+    rng = np.random.default_rng(m + block)
+    nb = 5
+    vb = rng.integers(-2, 3, (nb, block, d_pad), dtype=np.int8)
+    vn = rng.integers(0, 9, (nb, 1, block), dtype=np.int32)
+    q = rng.integers(-2, 3, (24, d_pad), dtype=np.int8)
+    scores, ids = tbi.bucket_scan_i8_reference(
+        torch.from_numpy(vn), torch.from_numpy(vb), torch.from_numpy(q), m=m)
+    want_s, want_b = _strict_fold(vn, vb, q, m)
+    np.testing.assert_array_equal(scores.numpy(), want_s)
+    np.testing.assert_array_equal(ids.numpy(), want_b)
+    # ties are real here: some minimum is reached by more than one block
+    s = (q.astype(np.int64) @ vb.astype(np.int64).transpose(0, 2, 1)
+         + vn.astype(np.int64))  # [nb, q, block]
+    per_block = s.reshape(nb, 24, block // m, m).min(axis=2)
+    assert ((per_block == want_s[None]).sum(axis=0) > 1).any()
+    assert len(np.unique(want_b)) > 1
 
 
 # ---- numpy mirrors of the int8 tile path (csrc/sm90.cuh) ----------------

@@ -16,6 +16,7 @@ from vector_database_tpu import build_index_fused as jax_build
 from vector_database_tpu.models.bsp import BSPIndex as JaxBSPIndex
 from vector_database_tpu_torch import build_index_fused, exact_ball, search
 from vector_database_tpu_torch.models.bsp import BSPIndex
+from vector_database_tpu_torch.ops.sorted_build import prefix_sum
 from vector_database_tpu_torch.utils import datasets
 
 torch.set_num_threads(2)
@@ -137,3 +138,26 @@ def test_progress_callback():
                               progress=lambda *a: seen.append(a))
     assert seen[0] == (0, 1, 500)
     assert len(seen) == index.depth
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (1024,), (1025,), (300_001,),
+                                   (3, 2049), (96, 5000), (1, 3000)])
+def test_prefix_sum_is_a_fixed_order_cumsum(shape):
+    """The build's float prefix sum against float64 ``cumsum``: each f32
+    partial sum is taken over at most a row of 1024 terms, then a chain of
+    row totals, recursively, so its error stays within (1024 + n / 1024 +
+    4) ulps of the running sum of |x|. On integer-valued data every sum is
+    exact. A second call gives the same bits: the order of additions
+    depends on the shape alone."""
+    rng = np.random.default_rng(shape[-1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    got = prefix_sum(torch.from_numpy(x))
+    assert got.shape == x.shape and got.dtype == torch.float32
+    x64 = x.astype(np.float64)
+    tol = (1024 + shape[-1] / 1024 + 4) * 2.0 ** -24 * \
+        np.cumsum(np.abs(x64), axis=-1)
+    assert (np.abs(got.numpy() - np.cumsum(x64, axis=-1)) <= tol).all()
+    assert torch.equal(got, prefix_sum(torch.from_numpy(x.copy())))
+    ints = np.rint(x * 100).astype(np.float32)
+    np.testing.assert_array_equal(prefix_sum(torch.from_numpy(ints)).numpy(),
+                                  np.cumsum(ints.astype(np.float64), axis=-1))

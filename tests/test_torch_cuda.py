@@ -11,6 +11,12 @@ of a power of two small enough that every product and every f32 sum is
 exact in any order, so the kernel and its plain version must agree bit
 for bit (block ids included: on equal scores both keep the lower id).
 The float tolerances of real data are ``chip_smoke.py``'s, at full size.
+Bucket counts that no 64-column tile divides (1000, 125, 96) take a
+partial tile in the grid's last CTA; int8 blocks of 1000 columns lie in
+rows padded to 16 bytes (``pad_rows``), as ``pack_database`` lays them;
+slices that start off 16-byte boundaries (m 125 or 250 in blocks of
+1000) are scanned from a copy in aligned slices (``pad_slices``).
+Two builds of one input give the same tree.
 """
 
 import pytest
@@ -64,25 +70,44 @@ def test_int8f_kernel_matches_plain_on_card(cuda_device, d_pad, pruned):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q_pad,d_pad,m,span", [
-    (64, 96, 512, 127),    # 64-row tile: 4 warp rows, 64 columns a CTA
-    (24, 160, 256, 127),   # 8-row tile, two contraction chunks
-    (8, 64, 128, 127),     # m 128: 2 warp rows, 128 columns a CTA
-    (64, 32, 256, 2),      # small values: many ties between blocks
+@pytest.mark.parametrize("q_pad,d_pad,block,m,span", [
+    (64, 96, 1024, 512, 127),    # 64-row CTA; a chunk past d_pad (zeros)
+    (24, 160, 1024, 256, 127),   # one 32-row CTA, two contraction chunks
+    (8, 64, 1024, 128, 127),     # m 128: two 64-column tiles
+    (64, 32, 1024, 256, 2),      # small values: many ties between blocks
+    (300, 128, 1024, 512, 127),  # 256-row CTAs, the second one partial
+    (104, 128, 1000, 1000, 127),  # m 1000: a 40-column tail tile
+    (64, 96, 1000, 125, 127),    # m 125, 8 slices: the tail reads slice j+1
+    (256, 32, 960, 96, 2),       # m 96, ties
+    (256, 128, 8192, 4096, 2),   # the main path's block and m, ties
 ])
-def test_i8_kernel_matches_plain_on_card(cuda_device, q_pad, d_pad, m, span):
+def test_i8_kernel_matches_plain_on_card(cuda_device, q_pad, d_pad, block,
+                                         m, span):
+    """The K-major pack ([nb, block, d_pad]) through s8 wgmma: scores and
+    first-block ids bitwise equal to the plain version."""
     g = torch.Generator(device=cuda_device).manual_seed(2)
     kw = dict(generator=g, device=cuda_device)
-    vb = torch.randint(-span, span + 1, (5, d_pad, 1024), dtype=torch.int8,
+    vb = torch.randint(-span, span + 1, (5, block, d_pad), dtype=torch.int8,
                        **kw)
-    vn = torch.randint(0, 2 * span * span + 1, (5, 1, 1024),
+    vn = torch.randint(0, 2 * span * span + 1, (5, 1, block),
                        dtype=torch.int32, **kw)
     q = torch.randint(-span, span + 1, (q_pad, d_pad), dtype=torch.int8,
                       **kw)
+    before = tbi.bucket_scan_i8.LAUNCHES
     scores, ids = tbi.bucket_scan_i8(vn, vb, q, m=m)
+    assert tbi.bucket_scan_i8.LAUNCHES == before + 1
     want_s, want_b = tbi.bucket_scan_i8_reference(vn, vb, q, m=m)
     assert torch.equal(scores, want_s)
     assert torch.equal(ids, want_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d_pad", [(8, 32), (104, 96), (4096, 128),
+                                        (300, 160), (512, 1536)])
+def test_i8_plan_matches_kernel_layout(cuda_device, rows, d_pad):
+    plan = tbi.i8_plan(rows, d_pad)
+    assert tbi._load().bucket_scan_i8_smem_bytes(
+        plan.nq, d_pad, plan.stages) == plan.smem
 
 
 @pytest.mark.cuda
@@ -314,3 +339,89 @@ def test_probe_kernel_partial_and_full_tiles_on_card(cuda_device, mode,
     plan = tbs.scan_plan(q_pad, tab.D_PAD, qn_tile=True)
     assert tab._load().probe_kernel_ab_smem_bytes(
         plan.nq, tab.D_PAD, plan.kc, plan.stages) == plan.smem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,m,pruned", [(1000, 1000, False),
+                                            (960, 96, False),
+                                            (1000, 125, False),
+                                            (960, 96, True)])
+def test_bf16_kernel_any_bucket_count_on_card(cuda_device, block, m, pruned):
+    """Bucket counts no 64-column tile divides: the last CTA of the grid's
+    bucket axis stores only its columns below m, and its boxes (norms
+    included) that run into the next slice, or past the block into TMA's
+    zero fill, change nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    vn, vb, q = _exact_bf16(g, cuda_device, 5, 96, block, 256)
+    args = dict(m=m, bits=3)
+    if pruned:
+        args.update(bmap=torch.tensor([[4, 0, 2], [1, 3, 0]],
+                                      dtype=torch.int32, device=cuda_device),
+                    nprobe=3, q_tile=128)
+    got = tbs.bucket_scan(vn, vb, q, **args)
+    assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, **args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,m,pruned", [(1000, 1000, False),
+                                            (960, 96, False),
+                                            (1000, 125, True)])
+def test_int8f_kernel_any_bucket_count_on_card(cuda_device, block, m,
+                                               pruned):
+    """As the bf16 test, on int8 blocks: 1000 one-byte columns are no
+    16-byte row stride, so the blocks lie in rows padded to 1008
+    (``pad_rows``, as ``pack_database`` lays them); the same blocks in
+    contiguous rows of 1000 bytes are refused, not misread, where the
+    kernel would read them as they lie (slices on 16-byte boundaries; m
+    125 scans a copy in aligned slices)."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    vn, vb, q = _exact_int8f(g, cuda_device, 5, 128, block, 256)
+    args = dict(m=m, bits=3)
+    if pruned:
+        args.update(bmap=torch.tensor([[4, 0, 2], [1, 3, 0]],
+                                      dtype=torch.int32, device=cuda_device),
+                    nprobe=3, q_tile=128)
+    if block % 16 and tbs.slices_aligned(m, block, 1, 4):
+        with pytest.raises(ValueError, match="16-byte boundaries"):
+            tbs.bucket_scan(vn, vb, q, **args)
+        vb = tbs.pad_rows(vb)
+        assert tbs.row_stride(vb) == 1008
+    got = tbs.bucket_scan(vn, vb, q, **args)
+    assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, **args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,m", [(1000, 1000), (960, 96), (1000, 250)])
+@pytest.mark.parametrize("mode", tab.MODES)
+def test_probe_kernel_any_bucket_count_on_card(cuda_device, mode, block, m):
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    kw = dict(generator=g, device=cuda_device)
+    vb = torch.randint(-2, 3, (3, tab.D_PAD, block), **kw).bfloat16()
+    vn = torch.randint(0, 9, (3, 1, block), **kw).float()
+    q = torch.randint(-2, 3, (256, tab.D_PAD), **kw).bfloat16()
+    qn = torch.randint(0, 9, (256, 1), **kw).float()
+    args = dict(m=m, bits=tab.id_bits(3, block // m))
+    got = tab.probe_kernel_ab(mode, vn, vb, q, qn, **args)
+    assert torch.equal(got, tab.probe_kernel_ab_reference(mode, vn, vb, q,
+                                                          qn, **args))
+
+
+@pytest.mark.cuda
+def test_build_gives_one_tree_per_input_on_card(cuda_device):
+    """Two fused builds of one seeded 1M x 96 input: every float prefix
+    sum runs in an order fixed by the shapes (``prefix_sum``), so the node
+    tables are equal bit for bit."""
+    from vector_database_tpu_torch import build_index_fused
+
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    centers = torch.rand((1000, 96), generator=g, device=cuda_device) * 2 - 1
+    x = centers[torch.randint(0, 1000, (1_000_000,), generator=g,
+                              device=cuda_device)]
+    x += 0.05 * torch.randn(x.shape, generator=g, device=cuda_device)
+    a = build_index_fused(x, leaf_size=16)
+    b = build_index_fused(x, leaf_size=16)
+    assert (a.depth, a.num_leaves) == (b.depth, b.num_leaves)
+    for field in ("dim", "mid", "low", "high", "leaf_start", "leaf_count",
+                  "orig_row"):
+        ta, tb = getattr(a, field), getattr(b, field)
+        assert torch.equal(ta.view(torch.int32), tb.view(torch.int32)), field

@@ -7,7 +7,8 @@ CUDA kernels (the tensors lie on the CPU).
 
 Tolerances, with their reasons:
 - ``vb`` bitwise: both multiply by the f32-rounded ``-sq``, round half to
-  even and clip;
+  even and clip (the port's pure-int8 ``vb`` is K-major, ``[nb, block,
+  d_pad]``: the transpose of JAX's);
 - ``sq`` equal: the same Python arithmetic on the same f32 maximum;
 - the pure-int8 norm row ``vn2``: exactly equal on integer data in
   [-127, 127] (``sq = 1``, every sum is an exact integer), within 1 on
@@ -75,11 +76,17 @@ def test_int8_packs_match_jax(dtype, data):
     j = jpk.pack_database(v, **kw)
     t = tpk.pack_database(v, device="cpu", **kw)
     assert (t.n, t.block, t.m, t.bits) == (j.n, j.block, j.m, j.bits)
-    assert t.vb.shape == (4, 32, 256) and t.vb.dtype == torch.int8
+    assert t.vb.dtype == torch.int8 and t.d_pad == 32
     assert t.sq == j.sq
     if data == "integer":
         assert t.sq == 1.0
-    np.testing.assert_array_equal(t.vb.numpy(), np.asarray(j.vb))
+    want = np.asarray(j.vb)
+    if dtype == "int8":  # K-major: each block's rows as they lie
+        assert t.vb.shape == (4, 256, 32)
+        want = want.transpose(0, 2, 1)
+    else:
+        assert t.vb.shape == (4, 32, 256)
+    np.testing.assert_array_equal(t.vb.numpy(), want)
     if dtype == "int8":
         assert t.vn.dtype == torch.int32 and t.cent is None and j.cent is None
         diff = np.abs(t.vn.numpy().astype(np.int64)
@@ -95,7 +102,8 @@ def test_int8_packs_match_jax(dtype, data):
 
 @pytest.mark.parametrize("q_tile", [8, 16])
 def test_i8_scan_matches_jax_kernel(q_tile):
-    """The port's quantized queries and its plain i8 scan equal JAX's
+    """The port's quantized queries and its plain i8 scan, on the JAX
+    pack loaded (and made K-major) through ``from_numpy``, equal JAX's
     interpret-mode ``_kernel_i8`` inputs and outputs bit for bit."""
     vecs, queries = _clustered(41, 3000, 20, 24, 37)
     jpack = jpk.pack_database(vecs, block=512, buckets=128, dtype="int8")
@@ -105,7 +113,10 @@ def test_i8_scan_matches_jax_kernel(q_tile):
                                   q_tile=q_tile, interpret=True)
     (args, (score, ids)), = calls
     pack = _port_pack(jpack)
-    qi = tpk._scan_queries(pack, _padded(queries, q_tile, pack.vb.shape[1]))
+    assert pack.vb.shape == (jpack.vb.shape[0], 512, pack.d_pad)
+    np.testing.assert_array_equal(pack.vb.numpy(),
+                                  np.asarray(jpack.vb).transpose(0, 2, 1))
+    qi = tpk._scan_queries(pack, _padded(queries, q_tile, pack.d_pad))
     np.testing.assert_array_equal(qi.numpy(), args[2])
     got_s, got_b = tbi.bucket_scan_i8(pack.vn, pack.vb, qi, m=pack.m)
     np.testing.assert_array_equal(got_s.numpy(), score.reshape(-1, pack.m))
@@ -131,7 +142,7 @@ def test_int8f_scans_match_jax_kernels(mode):
                                           interpret=True, **kw)
     (args, acc), = calls
     pack = _port_pack(jpack)
-    qp = _padded(queries, 16, pack.vb.shape[1])
+    qp = _padded(queries, 16, pack.d_pad)
     bmap = None
     if mode != "full":
         order, bmap = tpk._block_map(pack, torch.from_numpy(queries),
@@ -214,13 +225,13 @@ def test_packed_server_over_int8_packs(dtype):
 def test_i8_plain_version_is_exact_past_one_f32_chunk():
     """d_pad above 1024 splits the f32 products; the sum stays exact."""
     rng = np.random.default_rng(5)
-    vb = torch.from_numpy(rng.integers(-127, 128, (2, 1088, 256),
+    vb = torch.from_numpy(rng.integers(-127, 128, (2, 256, 1088),
                                        dtype=np.int8))
     vn = torch.from_numpy(rng.integers(0, 2 ** 20, (2, 1, 256),
                                        dtype=np.int32))
     q = torch.from_numpy(rng.integers(-127, 128, (8, 1088), dtype=np.int8))
     scores, ids = tbi.bucket_scan_i8_reference(vn, vb, q, m=128)
-    dots = q.long() @ vb.long()  # [2, 8, 256] exact in int64
+    dots = q.long() @ vb.long().transpose(1, 2)  # [2, 8, 256], int64
     s = (dots + vn.long()).view(2, 8, 2, 128).amin(2)
     want_s, want_b = s.min(0)  # first minimum: ties keep block 0
     assert torch.equal(scores.long(), want_s)
@@ -228,7 +239,7 @@ def test_i8_plain_version_is_exact_past_one_f32_chunk():
 
 
 def test_i8_wrapper_uses_plain_version_only_on_cpu():
-    vb = torch.zeros((2, 32, 256), dtype=torch.int8)
+    vb = torch.zeros((2, 256, 32), dtype=torch.int8)
     vn = torch.zeros((2, 1, 256), dtype=torch.int32)
     q = torch.zeros((8, 32), dtype=torch.int8)
     before = tbi.bucket_scan_i8.LAUNCHES
@@ -239,3 +250,38 @@ def test_i8_wrapper_uses_plain_version_only_on_cpu():
         tbi.bucket_scan_i8(vn.to("meta"), vb.to("meta"), q.to("meta"), m=128)
     with pytest.raises(TypeError, match="int8"):
         tbi.bucket_scan_i8(vn.float(), vb, q, m=128)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8f", "int8"])
+def test_packs_of_1000_buckets_match_jax(dtype):
+    """``buckets=1000``, whose default block is 1000 (a bucket count no
+    64-column tile divides, and int8f rows of 1000 bytes, which TMA cannot
+    stride over): the port keeps JAX's values with the block axis in rows
+    padded to 1008 elements, and serves the same rows."""
+    vecs, queries = _clustered(53, 2500, 13, 24, 16)
+    kw = dict(buckets=1000, dtype=dtype)
+    j = jpk.pack_database(vecs, **kw)
+    t = tpk.pack_database(vecs, device="cpu", **kw)
+    assert (t.block, t.m, t.vb.shape[0]) == (j.block, j.m, 3) and \
+        t.block == t.m == 1000
+    assert tbs.row_stride(t.vn) == 1008
+    want = np.asarray(j.vb)
+    if dtype == "int8":
+        want = want.transpose(0, 2, 1)  # K-major, rows of d_pad bytes
+        assert tbs.row_stride(t.vb) == t.d_pad == 128
+        # vn2 rounds f32 sums taken in another order: within 1
+        assert np.abs(t.vn.numpy().astype(np.int64)
+                      - np.asarray(j.vn).astype(np.int64)).max() <= 1
+    else:
+        assert tbs.row_stride(t.vb) == 1008
+        np.testing.assert_allclose(t.vn.numpy(), np.asarray(j.vn),
+                                   rtol=1e-6, atol=1e-5)
+    got = t.vb.view(torch.int16) if dtype == "bfloat16" else t.vb
+    np.testing.assert_array_equal(got.numpy(),
+                                  want.view(np.int16) if dtype == "bfloat16"
+                                  else want)
+    tr, _ = tpk.pallas_scan_knn_packed(t, queries, k=5, q_tile=16)
+    jr, _ = jpk.pallas_scan_knn_packed(j, queries, k=5, q_tile=16)
+    agree = sum(len(set(a) & set(b))
+                for a, b in zip(tr.tolist(), np.asarray(jr).tolist()))
+    assert agree / tr.numel() >= (1.0 if dtype == "int8" else 0.99)

@@ -88,19 +88,22 @@ def test_probe_uses_plain_version_only_on_cpu():
         tab.probe_kernel_ab("fast", vn, vb, qb, qn, m=128, bits=3)
 
 
-@pytest.mark.parametrize("m", [64, 192, tab.M])
+@pytest.mark.parametrize("m", [64, 192, tab.M, 96, 32, 1000, 125])
 def test_probe_takes_the_skeletons_shapes(m):
     """The probe runs the serving scan's skeleton and takes its shapes:
-    any multiple of 64 bucket columns (the first probe kernel wanted
-    128)."""
+    any bucket count, a partial 64-column tile in the grid's last CTA
+    (the first probe kernel wanted multiples of 128)."""
     assert tab.check_kernel_shape is tbs.check_kernel_shape
     tab.check_kernel_shape(tab.D_PAD, m)
 
 
 @pytest.mark.parametrize("m", [96, 32])
 def test_probe_refuses_partial_column_tiles(m):
-    with pytest.raises(ValueError, match="m % 64 == 0"):
-        tab.check_kernel_shape(tab.D_PAD, m)
+    """What the probe still refuses is a partial 16-column tile of the
+    query's contraction columns (``d_pad`` 100), whatever the bucket
+    count."""
+    with pytest.raises(ValueError, match="d_pad % 16 == 0"):
+        tab.check_kernel_shape(100, m)
 
 
 @pytest.mark.parametrize("q_pad,nq", [(104, 64), (1024, 128), (4096, 128)])

@@ -9,6 +9,9 @@ path's shapes: a quick check of a kernel change, between full
   queries and m 4096, timed in turns (int8f, bf16, int8f, bf16): the
   full scan, then the scan pruned to 256 random blocks per group of 512
   queries; the two full outputs must be equal bit for bit;
+- ``bucket_scan_i8`` over the same int8 values laid K-major ([8192,
+  128] a block), int32 norms and 4096 int8 queries, full, in turns with
+  the int8f full scan (i8, int8f, i8, int8f);
 - the A/B probe's four modes at 10M rows (its own inputs) with 1024 and
   with 4096 queries.
 
@@ -27,6 +30,7 @@ import torch
 
 from vector_database_tpu_torch.benchmarks import probe_kernel_ab as pab
 from vector_database_tpu_torch.ops import bucket_scan as bs
+from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
 
 REPS = 5
 NB, D_PAD, BLOCK, M, Q, BITS = 1221, 128, 8192, 4096, 4096, 11
@@ -74,7 +78,14 @@ def main():
     out["int8f_equals_bf16"] = torch.equal(
         *(bs.bucket_scan(vn, vb, q, m=M, bits=BITS)
           for vb in blocks.values()))
-    del vb8, blocks
+    vbk = vb8.transpose(1, 2).contiguous()  # the K-major pure-int8 pack
+    vn2 = torch.randint(0, 2 ** 20, (NB, 1, BLOCK), dtype=torch.int32, **kw)
+    qi = torch.randint(-127, 128, (Q, D_PAD), dtype=torch.int8, **kw)
+    for name in ("i8", "int8f", "i8", "int8f"):
+        out.setdefault("i8_vs_int8f_full_ms", {}).setdefault(name, []).append(
+            _ms(lambda: bi.bucket_scan_i8(vn2, vbk, qi, m=M)) if name == "i8"
+            else _ms(lambda: bs.bucket_scan(vn, vb8, q, m=M, bits=BITS)))
+    del vb8, vbk, blocks
     for nq in (pab.Q, Q):
         vn_ab, vb_ab, q_ab, qn_ab = pab.make_inputs(10_000_000, q=nq)
         args = dict(m=pab.M, bits=pab.id_bits(vb_ab.shape[0],

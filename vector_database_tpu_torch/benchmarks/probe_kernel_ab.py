@@ -43,7 +43,11 @@ import torch
 from vector_database_tpu_torch.ops import cuda_build
 from vector_database_tpu_torch.ops.bucket_scan import (
     check_kernel_shape,
+    pad_slices,
+    row_pitch,
+    row_stride,
     scan_plan,
+    slices_aligned,
 )
 
 D, Q, REPS = 96, 1024, 20
@@ -130,6 +134,11 @@ def probe_kernel_ab(mode, vn, vb, q, qn, *, m, bits):
                          "device")
     nb, d_pad, block = vb.shape
     check_kernel_shape(d_pad, m)
+    if not slices_aligned(m, block, 2, 4):  # as bucket_scan
+        return probe_kernel_ab(mode, pad_slices(vn, m, 2),
+                               pad_slices(vb, m, 2), q, qn, m=row_pitch(m),
+                               bits=bits)[:, :m].contiguous()
+    row_stride(vb), row_stride(vn)  # rows on 16-byte boundaries
     q_pad = q.shape[0]
     plan = scan_plan(q_pad, d_pad, qn_tile=True)
     out = torch.empty((q_pad, m), dtype=torch.int32, device=q.device)

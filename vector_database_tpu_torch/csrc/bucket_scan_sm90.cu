@@ -85,7 +85,8 @@
 // Block map contract: a CTA covers up to R rows inside ONE group of
 // q_tile rows (grid.x = groups * ceil(q_tile / R)); the tail of a group is
 // computed on whatever rows follow and never written. It walks
-// bmap[group, :nprobe].
+// bmap[group, :nprobe]. Any m that divides block is served: grid.y is
+// ceil(m / 64), and a tail CTA stores only its columns below m.
 
 #include "sm90.cuh"
 
@@ -100,13 +101,14 @@ template <int NQ, int KC, int ESIZE>
 __global__ void __launch_bounds__(THREADS, 1)
 bucket_scan_sm90_kernel(const __grid_constant__ CUtensorMap tm_vb,
                         const __grid_constant__ CUtensorMap tm_q,
-                        const float* __restrict__ vn,
+                        const __grid_constant__ CUtensorMap tm_vn,
                         const int* __restrict__ bmap,
                         float* __restrict__ out, int nb, int d_pad,
                         int block, int m, int bits, int q_pad, int q_tile,
                         int cpg, int pmax, int nprobe, int stages) {
   constexpr int R = 2 * NQ;
   constexpr int NACC = NQ / 2;  // f32 accumulator registers a thread
+  constexpr int OPS = ESIZE == 2 ? OPS_BF16 : OPS_I8F;
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = carve(smem_raw, d_pad, R, KC * MT * ESIZE, stages, 0);
   const Rows rw = cta_rows(R, q_pad, q_tile, cpg);
@@ -121,8 +123,8 @@ bucket_scan_sm90_kernel(const __grid_constant__ CUtensorMap tm_vb,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0)
-      produce<R, KC, ESIZE>(sm, &tm_vb, &tm_q, nullptr, vn, wk, d_pad,
-                            rw.row0, c0, block, m, stages);
+      produce<R, KC, OPS>(sm, &tm_vb, &tm_q, &tm_vn, nullptr, wk, d_pad,
+                          rw.row0, c0, m, stages);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = wg - 1;
@@ -131,7 +133,7 @@ bucket_scan_sm90_kernel(const __grid_constant__ CUtensorMap tm_vb,
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 3.0e38f;
 
-    consume<NQ, KC, ESIZE, true>(
+    consume<NQ, KC, OPS, true>(
         sm, wk, c, stages,
         [&](const float (&prod)[NACC], float v0, float v1, int p, int) {
           // score = |v|^2 + q.(-2v); the block id rides the low bits
@@ -145,17 +147,18 @@ bucket_scan_sm90_kernel(const __grid_constant__ CUtensorMap tm_vb,
         });
 
     // acc[4i + e]: bucket column c0 + tile_col(warp, g, e >= 2), query row
-    // c * NQ + 8i + 2 tq (+1 for odd e)
+    // c * NQ + 8i + 2 tq (+1 for odd e); a tail CTA's columns >= m stay
     const int t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tq = t % 4;
+    const int cols[2] = {c0 + tile_col<OPS>(warp, g, 0),
+                         c0 + tile_col<OPS>(warp, g, 1)};
 #pragma unroll
     for (int i = 0; i < NACC / 4; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = c * NQ + 8 * i + 2 * tq + (e & 1);
-        if (r < rw.rows)
-          out[(size_t)(rw.row0 + r) * m + c0 +
-              tile_col<ESIZE>(warp, g, e >> 1)] = acc[4 * i + e];
+        if (r < rw.rows && cols[e >> 1] < m)
+          out[(size_t)(rw.row0 + r) * m + cols[e >> 1]] = acc[4 * i + e];
       }
     }
   }
@@ -164,8 +167,7 @@ bucket_scan_sm90_kernel(const __grid_constant__ CUtensorMap tm_vb,
 // ---- host side ---------------------------------------------------------
 
 struct Args {
-  CUtensorMap tm_vb, tm_q;
-  const float* vn;
+  CUtensorMap tm_vb, tm_q, tm_vn;
   const int* bmap;
   float* out;
   int nb, d_pad, block, m, bits, q_pad, q_tile, pmax, nprobe, stages;
@@ -180,10 +182,10 @@ int launch(const Args& a) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return (int)err;
   const int cpg = (a.q_tile + 2 * NQ - 1) / (2 * NQ);
-  dim3 grid((a.q_pad / a.q_tile) * cpg, a.m / MT);
+  dim3 grid((a.q_pad / a.q_tile) * cpg, (a.m + MT - 1) / MT);
   bucket_scan_sm90_kernel<NQ, KC, ESIZE>
       <<<grid, THREADS, a.smem, a.stream>>>(
-          a.tm_vb, a.tm_q, a.vn, a.bmap, a.out, a.nb, a.d_pad, a.block,
+          a.tm_vb, a.tm_q, a.tm_vn, a.bmap, a.out, a.nb, a.d_pad, a.block,
           a.m, a.bits, a.q_pad, a.q_tile, cpg, a.pmax, a.nprobe, a.stages);
   return (int)cudaGetLastError();
 }
@@ -225,26 +227,29 @@ size_t bucket_scan_sm90_smem_bytes(int nq, int d_pad, int kc, int stages,
   return smem_bytes(2 * nq, d_pad, kc * MT * esize, stages, 0);
 }
 
-// vb [nb, d_pad, block] bf16 (esize 2) or int8 (esize 1), f32 vn [nb, 1,
-// block], bf16 q [q_pad, d_pad], optional int32 bmap [q_pad / q_tile,
-// pmax]; out [q_pad, m] f32. nq in {16, 32, 64, 128}; kc in {16, 32, 64,
-// 128, 256} (at most 128 for int8) divides d_pad; m % 64 == 0, block % m
-// == 0; q_tile divides q_pad (q_tile = q_pad for the full scan). Returns a
-// CUDA error code (CUDA_ERROR_* + 10000 for the driver's tensor-map
-// encoder), 0 on success.
+// vb [nb, d_pad, block] bf16 (esize 2) or int8 (esize 1) with rows ld_vb
+// elements apart, f32 vn [nb, 1, block] with rows ld_vn apart (each row
+// stride a multiple of 16 bytes), bf16 q [q_pad, d_pad], optional int32
+// bmap [q_pad / q_tile, pmax]; out [q_pad, m] f32. nq in {16, 32, 64,
+// 128}; kc in {16, 32, 64, 128, 256} (at most 128 for int8) divides d_pad;
+// block % m == 0; q_tile divides q_pad (q_tile = q_pad for the full scan).
+// Returns a CUDA error code (CUDA_ERROR_* + 10000 for
+// cuTensorMapEncodeTiled), 0 on success.
 int bucket_scan_sm90_launch(const void* vn, const void* vb, const void* q,
                             const void* bmap, void* out, int nb, int d_pad,
-                            int block, int m, int bits, int q_pad,
-                            int q_tile, int pmax, int nprobe, int nq, int kc,
-                            int stages, int esize, void* stream) {
+                            int block, int ld_vb, int ld_vn, int m, int bits,
+                            int q_pad, int q_tile, int pmax, int nprobe,
+                            int nq, int kc, int stages, int esize,
+                            void* stream) {
   if (!encode_fn()) return (int)cudaErrorNotSupported;
   if (esize != 1 && esize != 2) return (int)cudaErrorInvalidValue;
   Args a;
-  CUresult res = encode_vb(&a.tm_vb, vb, nb, d_pad, block, kc, esize);
+  CUresult res = encode_vb(&a.tm_vb, vb, nb, d_pad, block, ld_vb, kc, esize);
   if (res != CUDA_SUCCESS) return 10000 + (int)res;
   res = encode_q(&a.tm_q, q, q_pad, d_pad, 2 * nq);
   if (res != CUDA_SUCCESS) return 10000 + (int)res;
-  a.vn = static_cast<const float*>(vn);
+  res = encode_vn(&a.tm_vn, vn, nb, block, ld_vn);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
   a.bmap = static_cast<const int*>(bmap);
   a.out = static_cast<float*>(out);
   a.nb = nb, a.d_pad = d_pad, a.block = block, a.m = m, a.bits = bits;

@@ -41,8 +41,9 @@ template <int MODE, int NQ, int KC>
 __global__ void __launch_bounds__(THREADS, 1)
 probe_kernel(const __grid_constant__ CUtensorMap tm_vb,
              const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_vn,
              const __grid_constant__ CUtensorMap tm_qn,
-             const float* __restrict__ vn, int* __restrict__ out, int nb,
+             int* __restrict__ out, int nb,
              int d_pad, int block, int m, int bits, int q_pad, int cpg,
              int stages) {
   constexpr bool DOT = MODE == FULL || MODE == NOEPI;
@@ -61,8 +62,8 @@ probe_kernel(const __grid_constant__ CUtensorMap tm_vb,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0)
-      produce<R, KC, 2>(sm, &tm_vb, &tm_q, &tm_qn, vn, wk, d_pad, rw.row0,
-                        c0, block, m, stages);
+      produce<R, KC, OPS_BF16>(sm, &tm_vb, &tm_q, &tm_vn, &tm_qn, wk, d_pad,
+                               rw.row0, c0, m, stages);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = wg - 1;
@@ -75,7 +76,7 @@ probe_kernel(const __grid_constant__ CUtensorMap tm_vb,
     // the query norms of acc[4i + e]: row c * NQ + 8i + 2 tq (+1, odd e)
     const float* qrow = sm.qns + c * NQ + 2 * tq;
 
-    consume<NQ, KC, 2, DOT>(
+    consume<NQ, KC, OPS_BF16, DOT>(
         sm, wk, c, stages,
         [&](const float (&prod)[NACC], float v0, float v1, int b, int j) {
           const int id = b * wk.w + j;
@@ -104,22 +105,23 @@ probe_kernel(const __grid_constant__ CUtensorMap tm_vb,
           }
         });
 
+    // a tail CTA's columns >= m stay unwritten
+    const int cols[2] = {c0 + tile_col<OPS_BF16>(warp, g, 0),
+                         c0 + tile_col<OPS_BF16>(warp, g, 1)};
 #pragma unroll
     for (int i = 0; i < NACC / 4; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = c * NQ + 8 * i + 2 * tq + (e & 1);
-        if (r < rw.rows)
-          out[(size_t)(rw.row0 + r) * m + c0 + tile_col<2>(warp, g, e >> 1)] =
-              acc[4 * i + e];
+        if (r < rw.rows && cols[e >> 1] < m)
+          out[(size_t)(rw.row0 + r) * m + cols[e >> 1]] = acc[4 * i + e];
       }
     }
   }
 }
 
 struct Args {
-  CUtensorMap tm_vb, tm_q, tm_qn;
-  const float* vn;
+  CUtensorMap tm_vb, tm_q, tm_vn, tm_qn;
   int* out;
   int nb, d_pad, block, m, bits, q_pad, stages;
   size_t smem;
@@ -133,9 +135,9 @@ int launch(const Args& a) {
       (int)a.smem);
   if (err != cudaSuccess) return (int)err;
   const int cpg = (a.q_pad + 2 * NQ - 1) / (2 * NQ);
-  dim3 grid(cpg, a.m / MT);
+  dim3 grid(cpg, (a.m + MT - 1) / MT);
   probe_kernel<MODE, NQ, KC><<<grid, THREADS, a.smem, a.stream>>>(
-      a.tm_vb, a.tm_q, a.tm_qn, a.vn, a.out, a.nb, a.d_pad, a.block, a.m,
+      a.tm_vb, a.tm_q, a.tm_vn, a.tm_qn, a.out, a.nb, a.d_pad, a.block, a.m,
       a.bits, a.q_pad, cpg, a.stages);
   return (int)cudaGetLastError();
 }
@@ -174,9 +176,10 @@ size_t probe_kernel_ab_smem_bytes(int nq, int d_pad, int kc, int stages) {
 }
 
 // mode: 0 full, 1 noepi, 2 nodot, 3 dmaonly. bf16 vb [nb, d_pad, block],
-// f32 vn [nb, 1, block], bf16 q [q_pad, d_pad], f32 qn [q_pad]; out
-// [q_pad, m] int32. nq in {16, 32, 64, 128}; kc in {16, ..., 256} divides
-// d_pad; m % 64 == 0, block % m == 0. Returns a CUDA error code
+// f32 vn [nb, 1, block], both contiguous with block % 8 == 0 (rows on
+// 16-byte boundaries), bf16 q [q_pad, d_pad], f32 qn [q_pad]; out [q_pad,
+// m] int32. nq in {16, 32, 64, 128}; kc in {16, ..., 256} divides d_pad;
+// block % m == 0. Returns a CUDA error code
 // (CUDA_ERROR_* + 10000 for the tensor-map encoder; cudaErrorInvalidValue
 // for an unknown mode), 0 on success.
 int probe_kernel_ab_launch(int mode, const void* vn, const void* vb,
@@ -185,9 +188,11 @@ int probe_kernel_ab_launch(int mode, const void* vn, const void* vb,
                            int nq, int kc, int stages, void* stream) {
   if (!encode_fn()) return (int)cudaErrorNotSupported;
   Args a;
-  CUresult res = encode_vb(&a.tm_vb, vb, nb, d_pad, block, kc, 2);
+  CUresult res = encode_vb(&a.tm_vb, vb, nb, d_pad, block, block, kc, 2);
   if (res != CUDA_SUCCESS) return 10000 + (int)res;
   res = encode_q(&a.tm_q, q, q_pad, d_pad, 2 * nq);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
+  res = encode_vn(&a.tm_vn, vn, nb, block, block);
   if (res != CUDA_SUCCESS) return 10000 + (int)res;
   // qn as a 1-D tensor in boxes of R: rows past q_pad read 0
   const cuuint64_t qdim[1] = {(cuuint64_t)q_pad};
@@ -200,7 +205,6 @@ int probe_kernel_ab_launch(int mode, const void* vn, const void* vb,
                     CU_TENSOR_MAP_L2_PROMOTION_NONE,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return 10000 + (int)res;
-  a.vn = static_cast<const float*>(vn);
   a.out = static_cast<int*>(out);
   a.nb = nb, a.d_pad = d_pad, a.block = block, a.m = m, a.bits = bits;
   a.q_pad = q_pad, a.stages = stages;

@@ -1,14 +1,28 @@
 // The Hopper skeleton of the port's bucketed scans, shared by
-// bucket_scan_sm90.cu (the serving scan, bf16 and int8f packs) and
-// probe_kernel_ab.cu (the A/B probe that splits its time), so that the
-// probe times the loop that serves.
+// bucket_scan_sm90.cu (the serving scan, bf16 and int8f packs),
+// bucket_scan_i8.cu (the exact integer scan of pure-int8 packs) and
+// probe_kernel_ab.cu (the A/B probe that splits the scan's time), so that
+// the probe times the loop that serves.
 //
 // A CTA is three warpgroups: warpgroup 0 produces (one thread issues every
 // TMA copy; the warpgroup gives its registers away with setmaxnreg), 1 and
 // 2 consume, each multiplying its NQ query rows (R = 2 NQ a CTA) by every
-// staged [KC][64] vb tile with wgmma. The database is the wgmma M side: a
-// thread's accumulator rows are bucket columns, its columns query rows.
-// This header holds the PTX wrappers (mbarriers, TMA and bulk copies, the
+// staged vb tile of 64 bucket columns with wgmma. The database is the
+// wgmma M side: a thread's accumulator rows are bucket columns, its
+// columns query rows. Three operand routes (Ops) share the loop:
+//   OPS_BF16  bf16 tiles [KC][64], the MN-major A operand from shared
+//             memory; bf16 queries; f32 products;
+//   OPS_I8F   int8 tiles [KC][64], widened exactly to bf16 A fragments in
+//             registers; bf16 queries; f32 products;
+//   OPS_S8    int8 tiles [64][KC] of a K-major pack, the K-major A operand
+//             from shared memory; int8 queries; exact s32 products.
+// The grid's bucket axis is ceil(m / 64) CTAs: a tail CTA's columns at or
+// past m are computed on whatever its boxes hold (the next slice's columns,
+// or TMA's zero fill past the block) and never stored. A TMA box must start
+// on a 16-byte boundary in global memory (one that does not faults), so the
+// wrappers hand the kernels slices that do (ops/bucket_scan.py,
+// slices_aligned and pad_slices).
+// This header holds the PTX wrappers (mbarriers, TMA copies, the
 // 128-byte-swizzle matrix descriptor, wgmma with A from shared memory or
 // from registers), the exact int8 -> bf16 widening, and the skeleton:
 //   Smem       the shared-memory layout;
@@ -23,11 +37,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace sm90 {
 
 constexpr int MT = 64;           // bucket columns per CTA (wgmma M)
 constexpr int THREADS = 384;     // producer warpgroup + 2 consumers
 constexpr int ROW_BYTES = 128;   // one swizzled query-tile row: 64 bf16
+                                 // or 128 int8
+
+// How a staged tile and the query tile reach the tensor cores (above).
+enum Ops { OPS_BF16 = 0, OPS_I8F = 1, OPS_S8 = 2 };
+
+__host__ __device__ constexpr int vb_esize(int ops) {
+  return ops == OPS_BF16 ? 2 : 1;
+}
+__host__ __device__ constexpr int q_esize(int ops) {
+  return ops == OPS_S8 ? 1 : 2;
+}
+// The products' and the norms' type: f32, or int32 for the exact route.
+template <int OPS>
+using acc_t = typename std::conditional<OPS == OPS_S8, int, float>::type;
 
 // ---- PTX wrappers ----------------------------------------------------
 
@@ -83,15 +113,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -197,11 +218,109 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+
+// D[64 x N] (+)= A[64 x 32] * B[32 x N], s8 in, s32 out, exact (wrapping,
+// no saturation); A and B both K-major (s8 takes no transpose flags),
+// both from shared memory.
+template <>
+__device__ __forceinline__ void wgmma_s8<16>(int (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // Keep the compiler from moving register traffic across a wgmma.
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int N>
@@ -369,15 +488,21 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w) {
 
 // ---- the skeleton ----------------------------------------------------
 
-// Shared memory a CTA claims for `rows` query rows, a ring of `stages`
-// tiles of `tile_bytes`, and `qn_rows` f32 query norms (the probe's; 0 for
-// the scan): 1024 bytes of alignment slack, the query tile in 64-column
-// boxes of 128-byte rows, the ring, the query norms, each stage's 64 f32
-// norms, and the ring's full/empty barriers plus the query tile's. The
-// Python plan (ops/bucket_scan.py, _smem_bytes) computes the same sum.
+// Query elements in one 128-byte row of the query tile: a box's columns.
+__host__ __device__ constexpr int q_box(int q_esize) {
+  return ROW_BYTES / q_esize;
+}
+
+// Shared memory a CTA claims for `rows` query rows of q_esize-byte
+// elements, a ring of `stages` tiles of `tile_bytes`, and `qn_rows` f32
+// query norms (the probe's; 0 for the scans): 1024 bytes of alignment
+// slack, the query tile in boxes of 128-byte rows (64 bf16 or 128 int8
+// columns each), the ring, the query norms, each stage's 64 4-byte norms,
+// and the ring's full/empty barriers plus the query tile's. The Python
+// plan (ops/bucket_scan.py, _smem_bytes) computes the same sum.
 inline size_t smem_bytes(int rows, int d_pad, int tile_bytes, int stages,
-                         int qn_rows) {
-  const size_t nkq = (d_pad + 63) / 64;
+                         int qn_rows, int q_esize = 2) {
+  const size_t nkq = (d_pad + q_box(q_esize) - 1) / q_box(q_esize);
   return 1024 + nkq * rows * ROW_BYTES + (size_t)stages * tile_bytes +
          (size_t)qn_rows * 4 + (size_t)stages * MT * 4 +
          (2 * (size_t)stages + 1) * 8;
@@ -387,7 +512,7 @@ struct Smem {
   unsigned char* qs;  // [nkq][rows][128 B], 128-byte swizzled
   unsigned char* bs;  // [stages][tile_bytes], 1024-byte aligned tiles
   float* qns;         // [qn_rows]
-  float* vns;         // [stages][64]
+  float* vns;         // [stages][64] norms (int32 bits on the s8 route)
   uint64_t* full;     // [stages]: the tile (and norms) landed
   uint64_t* empty;    // [stages]: the 8 consumer warps released it
   uint64_t* qbar;     // the query tile (and query norms) landed
@@ -395,11 +520,12 @@ struct Smem {
 
 __device__ __forceinline__ Smem carve(unsigned char* raw, int d_pad, int rows,
                                       int tile_bytes, int stages,
-                                      int qn_rows) {
+                                      int qn_rows, int q_esize = 2) {
   Smem s;
   s.qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-  s.bs = s.qs + (d_pad + 63) / 64 * rows * ROW_BYTES;
+  s.bs = s.qs + (d_pad + q_box(q_esize) - 1) / q_box(q_esize) * rows *
+                    ROW_BYTES;
   s.qns = reinterpret_cast<float*>(s.bs + stages * tile_bytes);
   s.vns = s.qns + qn_rows;
   s.full = reinterpret_cast<uint64_t*>(s.vns + stages * MT);
@@ -439,6 +565,7 @@ __device__ __forceinline__ Rows cta_rows(int R, int q_pad, int q_tile,
 // which is map[p] (p itself for the full scan). Every block, slice and K
 // step is walked in this order whatever the block map, so probes = nb
 // equals the full scan and runtime probes equal static probes bit for bit.
+// A last chunk that runs past d_pad reads TMA's zero fill.
 struct Walk {
   const int* map;
   int w, nk, total;
@@ -452,28 +579,32 @@ __device__ __forceinline__ Walk walk(const int* map, int count, int block,
   Walk k;
   k.map = map;
   k.w = block / m;
-  k.nk = d_pad / kc;
+  k.nk = (d_pad + kc - 1) / kc;
   k.total = count * k.w * k.nk;
   return k;
 }
 
 // The producer thread: the query tile (and, with tm_qn, the probe's R
-// query norms) once, then every tile of the walk through the ring: a
-// [KC][64] box of ESIZE-byte elements from vb [nb, d_pad, block], and at a
-// slice's last chunk the slice's 64 norms on the same barrier.
-template <int R, int KC, int ESIZE>
+// query norms) once, then every tile of the walk through the ring: a box
+// of 64 bucket columns x KC contraction rows from vb ([nb, d_pad, block]
+// as [KC][64], or the K-major [nb, block, d_pad] as [64][KC] on the s8
+// route), and at a slice's last chunk the slice's 64 norms from the
+// [nb, block] norm map on the same barrier. A tail CTA's boxes run into
+// the next slice's columns, or past the block into TMA's zero fill.
+template <int R, int KC, int OPS>
 __device__ __forceinline__ void produce(const Smem& sm,
                                         const CUtensorMap* tm_vb,
                                         const CUtensorMap* tm_q,
+                                        const CUtensorMap* tm_vn,
                                         const CUtensorMap* tm_qn,
-                                        const float* vn, const Walk& wk,
-                                        int d_pad, int row0, int c0,
-                                        int block, int m, int stages) {
-  constexpr int TILE = KC * MT * ESIZE;
-  const int nkq = (d_pad + 63) / 64;
+                                        const Walk& wk, int d_pad, int row0,
+                                        int c0, int m, int stages) {
+  constexpr int TILE = KC * MT * vb_esize(OPS);
+  constexpr int QB = q_box(q_esize(OPS));
+  const int nkq = (d_pad + QB - 1) / QB;
   mbar_expect_tx(sm.qbar, nkq * R * ROW_BYTES + (tm_qn ? R * 4 : 0));
   for (int kq = 0; kq < nkq; ++kq)
-    tma_load_2d(sm.qs + kq * R * ROW_BYTES, tm_q, kq * 64, row0, sm.qbar);
+    tma_load_2d(sm.qs + kq * R * ROW_BYTES, tm_q, kq * QB, row0, sm.qbar);
   if (tm_qn) tma_load_1d(sm.qns, tm_qn, row0, sm.qbar);
   for (int s = 0; s < wk.total; ++s) {
     const int st = s % stages;
@@ -481,25 +612,27 @@ __device__ __forceinline__ void produce(const Smem& sm,
     const int kci = s % wk.nk, pj = s / wk.nk;
     const int p = pj / wk.w, j = pj - p * wk.w;
     const int b = wk.block(p);
+    const int col = j * m + c0;
     const bool last = kci == wk.nk - 1;
     mbar_expect_tx(&sm.full[st], TILE + (last ? MT * 4 : 0));
-    tma_load_3d(sm.bs + st * TILE, tm_vb, j * m + c0, kci * KC, b,
-                &sm.full[st]);
-    if (last)
-      bulk_load(sm.vns + st * MT, vn + (size_t)b * block + j * m + c0,
-                MT * 4, &sm.full[st]);
+    if constexpr (OPS == OPS_S8)
+      tma_load_3d(sm.bs + st * TILE, tm_vb, kci * KC, col, b, &sm.full[st]);
+    else
+      tma_load_3d(sm.bs + st * TILE, tm_vb, col, kci * KC, b, &sm.full[st]);
+    if (last) tma_load_2d(sm.vns + st * MT, tm_vn, col, b, &sm.full[st]);
   }
 }
 
 // The bucket column (of the CTA's 64) that accumulator row g + 8h of warp
-// `warp` stands for. A bf16 tile is the A operand as it lies (rows of the
-// descriptor): 16 warp + g + 8h. An int8 tile is widened by the threads
-// into register A fragments, whose rows the kernel assigns: 16 warp + 2g +
-// h, so that one 16-bit element of the tile holds the bytes of both of a
-// thread's rows at one k. The norm read and every store follow this map.
-template <int ESIZE>
+// `warp` stands for. A tile read through a descriptor (bf16, s8) is the A
+// operand as it lies: 16 warp + g + 8h. An int8f tile is widened by the
+// threads into register A fragments, whose rows the kernel assigns: 16
+// warp + 2g + h, so that one 16-bit element of the tile holds the bytes of
+// both of a thread's rows at one k. The norm read and every store follow
+// this map.
+template <int OPS>
 __device__ __forceinline__ int tile_col(int warp, int g, int h) {
-  return ESIZE == 2 ? 16 * warp + g + 8 * h : 16 * warp + 2 * g + h;
+  return OPS == OPS_I8F ? 16 * warp + 2 * g + h : 16 * warp + g + 8 * h;
 }
 
 // The wgmma A fragments of one staged int8 [KC][64] tile, widened to bf16.
@@ -537,35 +670,40 @@ __device__ __forceinline__ void int8_fragments(const unsigned char* tile,
 
 // Consumer warpgroup c (0 or 1; query rows [c NQ, c NQ + NQ) of the CTA).
 // For each staged tile of the walk: wait for it, multiply it into prod
-// (64 bucket columns x NQ query rows, f32; K in 16-deep steps, the sum
-// restarting at a slice's first chunk), release the stage, and at a
-// slice's last chunk call epi(prod, v0, v1, p, j) with the norms of this
-// thread's two bucket columns (rows g and g + 8 of prod, tile_col) and the
-// slice's place in the walk (listed block p, slice j).
-//   ESIZE 2: A is the bf16 tile through the transposed (MN-major) A
+// (64 bucket columns x NQ query rows of acc_t<OPS>; K in steps of 16 bf16
+// or 32 int8, the sum restarting at a slice's first chunk), release the
+// stage, and at a slice's last chunk call epi(prod, v0, v1, p, j) with the
+// norms of this thread's two bucket columns (rows g and g + 8 of prod,
+// tile_col) and the slice's place in the walk (listed block p, slice j).
+//   OPS_BF16: A is the bf16 tile through the transposed (MN-major) A
 //     descriptor; the stage is released once the products have landed.
-//   ESIZE 1: each thread widens its A fragments from the int8 tile into
+//   OPS_S8: A is the int8 [64][KC] tile through a K-major descriptor, B
+//     the int8 query tile; s32 products; released as bf16.
+//   OPS_I8F: each thread widens its A fragments from the int8 tile into
 //     registers, reads the norms and releases the stage before issuing
 //     the wgmmas (A in registers, B the same query descriptor).
 //   DOT false (the probe's nodot and dmaonly modes, bf16): no products;
 //     the tiles still stream, and prod is left unset.
-template <int NQ, int KC, int ESIZE, bool DOT, class Epi>
+template <int NQ, int KC, int OPS, bool DOT, class Epi>
 __device__ __forceinline__ void consume(const Smem& sm, const Walk& wk,
                                         int c, int stages, Epi&& epi) {
-  static_assert(ESIZE == 2 || DOT, "int8 tiles are always multiplied");
-  constexpr int R = 2 * NQ, TILE = KC * MT * ESIZE;
+  static_assert(OPS == OPS_BF16 || DOT, "int8 tiles are always multiplied");
+  using T = acc_t<OPS>;
+  constexpr int R = 2 * NQ, TILE = KC * MT * vb_esize(OPS);
+  constexpr int QS = q_esize(OPS), QB = q_box(QS);
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32, g = lane / 4;
-  const int col0 = tile_col<ESIZE>(warp, g, 0);
-  const int col1 = tile_col<ESIZE>(warp, g, 1);
-  // B: this warpgroup's NQ query rows of the 64-column box holding k,
-  // advanced 2 bytes per column inside the swizzled row
+  const int col0 = tile_col<OPS>(warp, g, 0);
+  const int col1 = tile_col<OPS>(warp, g, 1);
+  // B: this warpgroup's NQ query rows of the box holding k, advanced QS
+  // bytes per column inside the swizzled row
   auto db = [&](int k) {
-    return sw128_desc(sm.qs + ((k / 64) * R + c * NQ) * ROW_BYTES +
-                          (k % 64) * 2,
+    return sw128_desc(sm.qs + ((k / QB) * R + c * NQ) * ROW_BYTES +
+                          (k % QB) * QS,
                       16, 1024);
   };
-  float prod[NQ / 2];
+  const T* vns = reinterpret_cast<const T*>(sm.vns);
+  T prod[NQ / 2];
 
   mbar_wait(sm.qbar, 0);
   for (int s = 0; s < wk.total; ++s) {
@@ -575,7 +713,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const Walk& wk,
     mbar_wait(&sm.full[st], (s / stages) & 1);
     const unsigned char* tile = sm.bs + st * TILE;
     uint32_t a[KC / 16][4];
-    if constexpr (ESIZE == 2 && DOT) {
+    if constexpr (OPS == OPS_BF16 && DOT) {
       fence_regs(prod);
       wgmma_fence();
 #pragma unroll
@@ -587,17 +725,29 @@ __device__ __forceinline__ void consume(const Smem& sm, const Walk& wk,
       }
       wgmma_commit_and_wait();
       fence_regs(prod);
-    } else if constexpr (ESIZE == 1) {
+    } else if constexpr (OPS == OPS_S8) {
+      fence_regs(prod);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 32) {
+        // A: the [64][128 B] tile's rows, 32 bytes of k along each one
+        // (8-row groups 1024 B apart), as the query tile is read for B
+        const uint64_t da = sw128_desc(tile + kk, 16, 1024);
+        wgmma_s8<NQ>(prod, da, db(kci * KC + kk), kci > 0 || kk > 0);
+      }
+      wgmma_commit_and_wait();
+      fence_regs(prod);
+    } else if constexpr (OPS == OPS_I8F) {
       int8_fragments<KC>(tile, warp, lane, a);
     }
-    float v0 = 0.f, v1 = 0.f;
+    T v0 = 0, v1 = 0;
     if (last) {
-      v0 = sm.vns[st * MT + col0];
-      v1 = sm.vns[st * MT + col1];
+      v0 = vns[st * MT + col0];
+      v1 = vns[st * MT + col1];
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[st]);  // the stage may refill
-    if constexpr (ESIZE == 1) {
+    if constexpr (OPS == OPS_I8F) {
       // registers written for A are fenced before the wgmmas that read
       // them, and kept until those have completed
       fence_regs(a);
@@ -634,15 +784,20 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// vb [nb, d_pad, block] of ESIZE-byte elements in [kc][64] boxes, the
-// bucket columns innermost: 128-byte swizzle for bf16 (the layout the A
-// descriptor reads), 64-byte for int8 (conflict-free fragment loads).
+// Every map below keeps the tensor's own extents, so a box that runs past
+// them reads zeros; only the strides between rows (ld elements, a
+// multiple of 16 bytes, as TMA requires) may exceed a row's extent.
+
+// vb [nb, d_pad, block] of ESIZE-byte elements, rows ld apart, in [kc][64]
+// boxes, the bucket columns innermost: 128-byte swizzle for bf16 (the
+// layout the A descriptor reads), 64-byte for int8 (conflict-free
+// fragment loads).
 inline CUresult encode_vb(CUtensorMap* map, const void* vb, int nb, int d_pad,
-                          int block, int kc, int esize) {
+                          int block, int ld, int kc, int esize) {
   const cuuint64_t dim[3] = {(cuuint64_t)block, (cuuint64_t)d_pad,
                              (cuuint64_t)nb};
-  const cuuint64_t stride[2] = {(cuuint64_t)block * esize,
-                                (cuuint64_t)d_pad * block * esize};
+  const cuuint64_t stride[2] = {(cuuint64_t)ld * esize,
+                                (cuuint64_t)d_pad * ld * esize};
   const cuuint32_t box[3] = {(cuuint32_t)MT, (cuuint32_t)kc, 1};
   const cuuint32_t ones[3] = {1, 1, 1};
   return encode_fn()(
@@ -655,16 +810,54 @@ inline CUresult encode_vb(CUtensorMap* map, const void* vb, int nb, int d_pad,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// q [q_pad, d_pad] bf16 in [rows][64] boxes, 128-byte swizzle (the K-major
-// B descriptor's layout); rows past q_pad and columns past d_pad read 0.
-inline CUresult encode_q(CUtensorMap* map, const void* q, int q_pad,
-                         int d_pad, int rows) {
-  const cuuint64_t dim[2] = {(cuuint64_t)d_pad, (cuuint64_t)q_pad};
-  const cuuint64_t stride[1] = {(cuuint64_t)d_pad * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)rows};
+// The K-major int8 pack vb [nb, block, d_pad], rows ld bytes apart, in
+// [64][kc] boxes of kc = 128 bytes, 128-byte swizzle: the K-major A
+// operand's layout on the s8 route.
+inline CUresult encode_vb_kmajor(CUtensorMap* map, const void* vb, int nb,
+                                 int d_pad, int block, int ld, int kc) {
+  const cuuint64_t dim[3] = {(cuuint64_t)d_pad, (cuuint64_t)block,
+                             (cuuint64_t)nb};
+  const cuuint64_t stride[2] = {(cuuint64_t)ld, (cuuint64_t)block * ld};
+  const cuuint32_t box[3] = {(cuuint32_t)kc, (cuuint32_t)MT, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                     const_cast<void*>(vb), dim, stride, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// vn [nb, 1, block] of 4-byte norms (f32, or int32 on the s8 route; the
+// bits are copied as they are), rows ld apart, as [nb, block] in boxes of
+// 64: a box past the block reads 0, so no copy leaves its block's row and
+// no column needs any alignment.
+inline CUresult encode_vn(CUtensorMap* map, const void* vn, int nb,
+                          int block, int ld) {
+  const cuuint64_t dim[2] = {(cuuint64_t)block, (cuuint64_t)nb};
+  const cuuint64_t stride[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)MT, 1};
   const cuuint32_t ones[2] = {1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     const_cast<void*>(q), dim, stride, box, ones,
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2,
+                     const_cast<void*>(vn), dim, stride, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// q [q_pad, d_pad] of esize-byte elements (bf16, or int8 on the s8 route)
+// in [rows][128 B] boxes, 128-byte swizzle (the K-major B descriptor's
+// layout); rows past q_pad and columns past d_pad read 0.
+inline CUresult encode_q(CUtensorMap* map, const void* q, int q_pad,
+                         int d_pad, int rows, int esize = 2) {
+  const cuuint64_t dim[2] = {(cuuint64_t)d_pad, (cuuint64_t)q_pad};
+  const cuuint64_t stride[1] = {(cuuint64_t)d_pad * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)q_box(esize), (cuuint32_t)rows};
+  const cuuint32_t ones[2] = {1, 1};
+  return encode_fn()(map,
+                     esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                     2, const_cast<void*>(q), dim, stride, box, ones,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                      CU_TENSOR_MAP_SWIZZLE_128B,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

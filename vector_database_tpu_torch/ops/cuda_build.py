@@ -86,14 +86,3 @@ def load(name: str, declare) -> ctypes.CDLL:
         _libs[name] = lib
     return _libs[name]
 
-
-def pick_qt(rows: int, smem_bytes) -> int:
-    """A kernel's query tile: the largest of 64/32/16/8 rows dividing
-    ``rows`` whose shared-memory plan ``smem_bytes(qt)`` fits one block."""
-    for qt in (64, 32, 16, 8):
-        if rows % qt == 0 and smem_bytes(qt) <= SMEM_LIMIT:
-            return qt
-    raise ValueError(
-        f"no kernel query tile divides {rows} rows within shared memory "
-        "(rows must be a multiple of 8)"
-    )

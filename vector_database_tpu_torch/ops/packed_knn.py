@@ -19,7 +19,15 @@ same kernel (its int8 instantiation widens the blocks to bf16, queries are
 pre-scaled by ``2/sq``); ``"int8"`` stores the integer norm row
 ``rint(|v|^2 sq^2/2)`` and scores exactly in int32 with int8 queries
 (``ops/bucket_scan_i8.py``), the block id in a second accumulator. The
-wider default shortlist (``oversample`` 16) absorbs the quantization.
+pure-int8 pack keeps its blocks K-major, ``vb [nb, block, d_pad]`` (the
+rows as they lie), the operand layout of the int8 tensor cores; the other
+packs keep the JAX package's ``[nb, d_pad, block]``. The wider default
+shortlist (``oversample`` 16) absorbs the quantization.
+
+The block axis of ``vb`` (bf16, int8f) and of ``vn`` lies in rows padded
+to a multiple of 16 elements when ``block`` is not one (``pad_rows``), so
+that every row starts on the 16-byte boundary the kernels' TMA maps need;
+the tensors are views of the first ``block`` columns.
 
 A true neighbor is lost only when a closer true neighbor lands in the same
 bucket (expected loss ~(k-1)/(2m) per neighbor) or when bf16 rounding
@@ -44,7 +52,11 @@ import functools
 import numpy as np
 import torch
 
-from vector_database_tpu_torch.ops.bucket_scan import bucket_scan
+from vector_database_tpu_torch.ops.bucket_scan import (
+    bucket_scan,
+    pad_rows,
+    row_pitch,
+)
 from vector_database_tpu_torch.ops.bucket_scan_i8 import bucket_scan_i8
 from vector_database_tpu_torch.ops.exact import (
     as_f32,
@@ -109,7 +121,9 @@ class PackedDB:
     the exact rerank; ``cent``/``rad`` are the per-cell pruning summaries
     (radius -3e38 marks an all-padding cell; None on pure-int8 packs)."""
 
-    vb: torch.Tensor  # [nb, d_pad, block] bf16 -2v (-v for ip) / int8 -v*sq
+    # [nb, d_pad, block] bf16 -2v (-v for ip) or int8f -v*sq; pure int8:
+    # K-major [nb, block, d_pad] -v*sq
+    vb: torch.Tensor
     vn: torch.Tensor  # [nb, 1, block] f32 |v|^2 (3e38 pad) / int32 vn2 (2^30)
     vectors: torch.Tensor  # [N, D] f32
     n: int
@@ -124,6 +138,11 @@ class PackedDB:
     @property
     def device(self) -> torch.device:
         return self.vb.device
+
+    @property
+    def d_pad(self) -> int:
+        """The padded dimensionality of the blocks."""
+        return self.vb.shape[2 if self.vn.dtype == torch.int32 else 1]
 
     def mask_rows(self, alive) -> "PackedDB":
         """A new ``PackedDB`` sharing every tensor except the norm row:
@@ -142,17 +161,25 @@ class PackedDB:
 
     @classmethod
     def from_numpy(cls, arrays, meta, *, device=None) -> "PackedDB":
-        """Pack from numpy buffers ``arrays`` (``vb``, ``vn``,
-        ``vectors``, optional ``cent``/``rad``; ``vb`` may be an ml_dtypes
-        bfloat16 array or int8, ``vn`` f32 or int32) and ``meta`` (``n``,
-        ``block``, ``m``, ``bits``, optional ``sq`` and ``metric``), on
-        ``device`` (default: the card, ``cuda``)."""
+        """Pack from numpy buffers ``arrays`` in the JAX package's layout
+        (``vb [nb, d_pad, block]``, ``vn``, ``vectors``, optional
+        ``cent``/``rad``; ``vb`` may be an ml_dtypes bfloat16 array or
+        int8, ``vn`` f32 or int32) and ``meta`` (``n``, ``block``, ``m``,
+        ``bits``, optional ``sq`` and ``metric``), on ``device`` (default:
+        the card, ``cuda``). A pure-int8 pack (int32 ``vn``) is transposed
+        once to its K-major ``[nb, block, d_pad]``."""
         device = resolve_device(device)
         opt = {key: _to_tensor(arrays[key], device)
                for key in ("cent", "rad") if arrays.get(key) is not None}
+        vb = _to_tensor(arrays["vb"], device)
+        vn = _to_tensor(arrays["vn"], device)
+        if vn.dtype == torch.int32:
+            vb = vb.transpose(1, 2).contiguous()
+        else:
+            vb = pad_rows(vb)
         return cls(
-            vb=_to_tensor(arrays["vb"], device),
-            vn=_to_tensor(arrays["vn"], device),
+            vb=vb,
+            vn=pad_rows(vn),
             vectors=_to_tensor(arrays["vectors"], device),
             n=int(meta["n"]), block=int(meta["block"]), m=int(meta["m"]),
             bits=int(meta["bits"]), sq=float(meta.get("sq", 0.0)),
@@ -166,7 +193,7 @@ def _mask_vn(vn, alive, n):
     nb, _, block = vn.shape
     a = torch.zeros(nb * block, dtype=torch.bool, device=vn.device)
     a[:n] = alive
-    return torch.where(a.view(nb, 1, block), vn, 3.0e38)
+    return pad_rows(torch.where(a.view(nb, 1, block), vn, 3.0e38))
 
 
 def _summary_cell(block: int) -> int:
@@ -216,12 +243,14 @@ def _int8_body(blk, real, *, sq, float_norms):
     return vq.to(torch.int8), torch.where(real, vn2.to(torch.int32), 2 ** 30)
 
 
-def _pack_blockwise(vectors, *, block, d_align, n_valid, cell, body):
+def _pack_blockwise(vectors, *, block, d_align, n_valid, cell, body,
+                    kmajor=False):
     """Pack a chunk of blocks at a time, so no full-size f32 temporary
     lives beside the matrix: zero-pad and zero the rows past ``n_valid``
     (caller padding, possibly +inf), run ``body(rows, real) -> (vb rows,
-    vn row)`` and store its rows transposed, and (unless ``cell`` is None)
-    the per-cell pruning summaries."""
+    vn row)`` and store its rows transposed (as they lie if ``kmajor``),
+    and (unless ``cell`` is None) the per-cell pruning summaries. The
+    block axis is stored in rows of ``row_pitch(block)`` elements."""
     n, d = vectors.shape
     nv = n if n_valid is None else n_valid
     d_pad = _round_up(d, d_align)
@@ -245,10 +274,15 @@ def _pack_blockwise(vectors, *, block, d_align, n_valid, cell, body):
         blk = torch.where(real[:, None], blk, 0.0)
         vbb, vnb = body(blk, real)
         if vb is None:  # the body decides the packed dtypes
-            vb = torch.empty((nb, d_pad, block), dtype=vbb.dtype, device=dev)
-            vn = torch.empty((nb, 1, block), dtype=vnb.dtype, device=dev)
+            pitch = row_pitch(block)
+            vb = torch.empty((nb, block, d_pad) if kmajor else
+                             (nb, d_pad, pitch), dtype=vbb.dtype, device=dev)
+            vb = vb if kmajor else vb[..., :block]
+            vn = torch.empty((nb, 1, pitch), dtype=vnb.dtype,
+                             device=dev)[..., :block]
         vn[b0:b1] = vnb.view(nblk, 1, block)
-        vb[b0:b1] = vbb.view(nblk, block, d_pad).transpose(1, 2)
+        rows = vbb.view(nblk, block, d_pad)
+        vb[b0:b1] = rows if kmajor else rows.transpose(1, 2)
         if cell is not None:
             c, r = _cell_summary_body(
                 blk.view(nblk, block, d_pad), real.view(nblk, block),
@@ -336,10 +370,12 @@ def pack_database(
                                  float_norms=dtype == "int8f")
     else:
         body = functools.partial(_bf16_body, ip=metric == "ip")
-    # the pure-int8 scan has no pruned variant: no summaries
+    # the pure-int8 scan has no pruned variant: no summaries; its blocks
+    # are K-major
     vb, vn, cent, rad = _pack_blockwise(
         vectors, block=block, d_align=d_align, n_valid=n_valid,
         cell=None if dtype == "int8" else _summary_cell(block), body=body,
+        kmajor=dtype == "int8",
     )
     return PackedDB(
         vb=vb, vn=vn, vectors=vectors, n=n, block=block, m=m, bits=bits,
@@ -422,7 +458,7 @@ def _shortlist_rows(
     clip ``probes`` into ``[1, width]`` (the runtime-probes form: the
     result equals the static ``probes`` call)."""
     block, m, bits = pack.block, pack.m, pack.bits
-    nb, d_pad, _ = pack.vb.shape
+    nb, d_pad = pack.vb.shape[0], pack.d_pad
     q, d = queries.shape
     w = block // m
     pure_i8 = pack.vn.dtype == torch.int32

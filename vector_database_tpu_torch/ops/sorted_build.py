@@ -20,7 +20,11 @@ Differences from the JAX program, none of which changes a result:
   (``lax.sort_key_val``), and the optimization barriers that sequenced
   the TPU's prefix transients are gone;
 - the split value is a column gather, where the TPU program summed a
-  one-hot mask (the same value for finite rows).
+  one-hot mask (the same value for finite rows);
+- every float prefix sum goes through ``prefix_sum``, whose order of
+  additions depends on the shape alone, so one input gives one tree on
+  every run; its two-level order rounds differently from XLA's, so on
+  float data a plane may differ from the JAX build's in its last ulp.
 
 Ties: ``tie_break="positional"`` halves rows on the plane (and whole
 zero-variance segments) by rank inside the segment. ``"mean_id"`` is the
@@ -36,6 +40,40 @@ import torch
 
 # dimensions per prefix-scan pass: bounds the [chunk, N/k] transients
 _D_CHUNK = 128
+# elements one row of ``prefix_sum`` scans
+_SCAN_ROW = 1024
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of ``x`` along its last dimension, in an order
+    of additions fixed by the shape alone: the same input gives the same
+    bits on every run, on the card as on the CPU.
+
+    ``torch.cumsum`` scans a tensor with more than one row along its last
+    dimension row by row, each row in one thread block in a fixed order
+    (serially on the CPU). A tensor whose scanned dimension is its only
+    non-unit one goes instead to CUB's single-pass scan on the card, whose
+    look-back adds tile sums in an order set by timing, so float sums
+    differ in their last bits from run to run. Here a row longer than
+    ``_SCAN_ROW`` is cut into rows of that length (the last one
+    zero-padded) that are scanned at once, their totals are scanned the
+    same way, recursively, and each row adds the totals before it; a lone
+    short row is scanned beside a row of zeros. Every ``torch.cumsum``
+    call thus sees more than one row."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    if n <= _SCAN_ROW:
+        rows = x.reshape(-1, n)
+        if rows.shape[0] > 1:
+            return torch.cumsum(rows, dim=1).reshape(x.shape)
+        two = torch.cat([rows, torch.zeros_like(rows)])
+        return torch.cumsum(two, dim=1)[:1].reshape(x.shape)
+    tiles = -(-n // _SCAN_ROW)
+    xp = torch.nn.functional.pad(x, (0, tiles * _SCAN_ROW - n))
+    local = torch.cumsum(xp.reshape(*lead, tiles, _SCAN_ROW), dim=-1)
+    carry = prefix_sum(local[..., -1])  # inclusive row totals
+    local[..., 1:, :] += carry[..., :-1, None]
+    return local.reshape(*lead, tiles * _SCAN_ROW)[..., :n]
 
 
 def check_mean_id_rows(n_total: int) -> None:
@@ -118,10 +156,10 @@ def sorted_build(
         sums_c, sumsq_c = [], []
         for c0 in range(0, d, _D_CHUNK):
             # scan along the last dim: [chunk, ns] rows scan in parallel
-            xc = xs[:, c0 : c0 + _D_CHUNK].T.contiguous()
-            pre = torch.cumsum(xc, dim=1)
+            xc = xs[:, c0 : c0 + _D_CHUNK].T
+            pre = prefix_sum(xc)
             sums_c.append(at(pre, s_hi) - at(pre, s_lo))
-            pre = torch.cumsum(xc * xc, dim=1)
+            pre = prefix_sum(xc * xc)
             sumsq_c.append(at(pre, s_hi) - at(pre, s_lo))
             del pre, xc
         sums = torch.cat(sums_c, dim=0).T  # [S, D]
@@ -160,9 +198,9 @@ def sorted_build(
                                 rounding_mode="floor")
 
         # --- phase 2: per-row split value and the exact split plane (one
-        # [N] cumsum of the chosen column)
+        # [N] prefix sum of the chosen column)
         value = pvec.gather(1, p_dim[:, None])[:, 0]
-        vc = torch.cumsum(torch.where(active, value, 0.0), dim=0)
+        vc = prefix_sum(torch.where(active, value, 0.0))
         mid = (at(vc, ends) - at(vc, seg_start)) / cnt_f
         p_mid = mid[ps]
 
