@@ -60,9 +60,32 @@ Phases (each raises on failure; nothing is caught):
    ``knn_batch(packed=True)`` (recall@10 >= 0.98), per-document k-NN and
    ``search_batch`` equal to the oracles, 1,000 adds served from the
    delta without a rebuild. The kernel's launch count must rise in each.
+10. out-of-core serving: OOC_N x D rows of the recipe (n/1000 centres,
+   three seeded chunks made on the card) written into a
+   ``NativeVectorStore`` under ``build/``, then ``ChunkedIndex.from_store``
+   in chunks of OOC_CHUNK (leaf 16, block 8192, 4096 buckets, d_align 16:
+   d_pad 96); at q=4096, k=10: streamed ``knn``, ``pin()``, pinned
+   pipelined and sequential ``knn`` (full and pruned to 256 blocks; each
+   pair bitwise equal, streamed bitwise equal to pinned) and the device
+   rerank (``host_rerank=False``, ids equal to the host rerank's), recall@10
+   >= 0.98 of the full modes against an exact oracle over all rows, a
+   chunk's scan and host rerank timed alone; the bf16 kernel's launch
+   count must rise. Then the kernel alone at a pinned chunk's shape
+   (d_pad 96, 1221 blocks), full and pruned 256, against its plain
+   version, with its bound and ``torch.matmul`` yardstick. Small checks at
+   1M x 8 in 4 chunks: ``search`` equal to ``exact_ball``; ``save`` ->
+   ``load``, ``spill_dir`` and a checkpointed ``from_store`` stopped after
+   chunk 2 and resumed, each serving the same answers bit for bit;
+11. the in-memory models: ``MemoryVectorIndex`` of 100,000 seeded records
+   in [-1, 1]^8 (``find``, ``find_batch``, ``to_bsp`` -> ``search`` /
+   ``locate``, ``remove``), ``BoolMatrixIndex`` of 100,000 x 64
+   (``identify_batch`` of 4096 stored rows, ``knn_hamming``,
+   ``find_hamming``), each against a numpy oracle, and ``heap_rows`` ->
+   ``from_heap_rows`` of a leaf_size=1 tree of 100,000 x 8.
 
-It prints the card's name and power limit, one JSON line of phase-9
-results, one JSON line of kernel results (each kernel with its time, its
+It prints the card's name and power limit, one JSON line each of the
+main path's, phase 7's, phase 9's and phases 10-11's results, one JSON
+line of kernel results (each kernel with its time, its
 plain version's, its bound from this run's shapes and the card's
 published peaks, the library yardstick, TFLOP/s and share of the bound),
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -70,6 +93,7 @@ exits non-zero and prints no result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -83,6 +107,9 @@ TREE_N, TREE_D = 1_000_000, 8
 REMOVE, ADD, EXACT_Q, PROBE = N // 100, 10_000, 256, 256
 TAIL_N, TAIL_BUCKETS, TAIL_Q = 1_000_000, 1000, 1024
 STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
+OOC_N, OOC_CHUNK, OOC_PROBES = 30_000_000, 10_000_000, 256
+SMALL_N, SMALL_D, SMALL_CHUNK, SMALL_Q = 1_000_000, 8, 250_000, 64
+MODEL_N, MODEL_D, MODEL_Q, BOOL_P, BOOL_Q = 100_000, 8, 64, 64, 4096
 REPS = 3
 DEVICE = "cuda"
 # NVIDIA H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM
@@ -625,6 +652,392 @@ def _tail_phase(dev):
     return out
 
 
+class _FailAfter:
+    """A row source that raises after ``n`` chunks: a build stopped
+    mid-way, for the checkpointed ``from_store``."""
+
+    def __init__(self, store, n):
+        self._store, self._n = store, n
+
+    def __len__(self):
+        return len(self._store)
+
+    def chunks(self, chunk_rows):
+        for i, chunk in enumerate(self._store.chunks(chunk_rows)):
+            if i >= self._n:
+                raise RuntimeError("build stopped after chunk 2")
+            yield chunk
+
+
+def _same_chunks(a, b):
+    """Two ``ChunkedIndex``es with equal chunks, array for array."""
+    import numpy as np
+
+    return a._offsets == b._offsets and all(
+        all(np.array_equal(np.asarray(ca[key]), np.asarray(cb[key]))
+            for key in ca) for ca, cb in zip(a._chunks, b._chunks))
+
+
+def _ooc_small(dev, tmp):
+    """Phase 10's small checks at SMALL_N x SMALL_D in 4 chunks: ``search``
+    equal to ``exact_ball``; ``save`` -> ``load``, a ``spill_dir`` build
+    and a checkpointed ``from_store`` stopped after chunk 2 and resumed,
+    each serving the in-RAM index's answers bit for bit."""
+    import numpy as np
+    import torch
+
+    from vector_database_tpu_torch import (
+        ChunkedIndex,
+        NativeVectorStore,
+        exact_ball,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    v8 = torch.rand((SMALL_N, SMALL_D), generator=g, device=dev) * 2 - 1
+    q8 = (torch.rand((SMALL_Q, SMALL_D), generator=g, device=dev) * 2 - 1)
+    v8_host, q8_host = v8.cpu().numpy(), q8.cpu().numpy()
+    index = ChunkedIndex(leaf_size=LEAF)
+    for lo in range(0, SMALL_N, SMALL_CHUNK):
+        index.add_chunk(v8_host[lo:lo + SMALL_CHUNK])
+    radius = 0.35
+    got = index.search(q8_host, radius)
+    want = [set() for _ in range(SMALL_Q)]
+    for lo in range(0, SMALL_N, SMALL_CHUNK):
+        qi, ri = torch.nonzero(exact_ball(v8[lo:lo + SMALL_CHUNK], q8,
+                                          radius), as_tuple=True)
+        for a, b in zip(qi.tolist(), ri.tolist()):
+            want[a].add(lo + b)
+    for i in range(SMALL_Q):
+        if set(got[i][0].tolist()) != want[i]:
+            raise AssertionError(f"ChunkedIndex.search != exact_ball, "
+                                 f"query {i}")
+    matches = sum(len(w) for w in want)
+    ref = index.knn(q8_host, K)
+
+    def same(other, what):
+        r, d = other.knn(q8_host, K)
+        if not (np.array_equal(r, ref[0]) and np.array_equal(d, ref[1])):
+            raise AssertionError(f"{what} serves other answers")
+
+    index.save(os.path.join(tmp, "saved"))
+    loaded = ChunkedIndex.load(os.path.join(tmp, "saved"))
+    if not isinstance(loaded._chunks[0]["vb"], np.memmap):
+        raise AssertionError("load did not memory-map the blocks")
+    same(loaded, "save -> load")
+    spilled = ChunkedIndex(leaf_size=LEAF, spill_dir=os.path.join(tmp, "sp"))
+    for lo in range(0, SMALL_N, SMALL_CHUNK):
+        spilled.add_chunk(v8_host[lo:lo + SMALL_CHUNK])
+    if not (isinstance(spilled._chunks[0]["vectors"], np.memmap)
+            and _same_chunks(spilled, index)):
+        raise AssertionError("spill_dir build differs from the in-RAM one")
+    same(spilled, "spill_dir")
+    ck = os.path.join(tmp, "ck")
+    with NativeVectorStore.create(os.path.join(tmp, "small.vstore"),
+                                  dims=SMALL_D) as store:
+        store.append(v8_host)
+        try:
+            ChunkedIndex.from_store(_FailAfter(store, 2), SMALL_CHUNK,
+                                    leaf_size=LEAF, checkpoint_dir=ck)
+            raise AssertionError("the stopped build did not stop")
+        except RuntimeError as e:
+            if "stopped after chunk 2" not in str(e):
+                raise
+        with open(os.path.join(ck, "resume.json")) as f:
+            if json.load(f)["chunks_done"] != 2:
+                raise AssertionError("the checkpoint did not keep 2 chunks")
+        resumed = ChunkedIndex.from_store(store, SMALL_CHUNK, leaf_size=LEAF,
+                                          checkpoint_dir=ck)
+    if not _same_chunks(resumed, index):
+        raise AssertionError("resumed build differs from an unbroken one")
+    same(resumed, "resumed build")
+    print(f"[ooc] {SMALL_N}x{SMALL_D} in {SMALL_N // SMALL_CHUNK} chunks: "
+          f"search r={radius} on {SMALL_Q} queries == exact_ball ({matches} "
+          f"matches); save -> load, spill_dir and a checkpointed build "
+          f"stopped after chunk 2 then resumed: equal chunks, the same "
+          f"answers bit for bit")
+    return dict(search_matches=matches)
+
+
+def _ooc_phase(dev, main_kernel_ms):
+    """Phase 10: ``ChunkedIndex`` over a ``NativeVectorStore`` of OOC_N x
+    D rows in chunks of OOC_CHUNK (block 8192, 4096 buckets, d_pad 96):
+    the store write and build, streamed, pinned pipelined and sequential
+    serving (full and pruned), the device rerank, recall against an exact
+    oracle over all rows, the host rerank alone, then the scan kernel
+    alone at one pinned chunk's shape; then the small checks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vector_database_tpu_torch import (
+        ChunkedIndex,
+        NativeVectorStore,
+        exact_knn,
+    )
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.ops.packed_knn import (
+        _block_map,
+        pallas_scan_knn_candidates,
+    )
+
+    out = {}
+    chunks = OOC_N // OOC_CHUNK
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build", prefix="chip_smoke_") as tmp:
+        g = torch.Generator(device=dev).manual_seed(SEED + 10)
+        n_centers = OOC_N // 1000
+        centers = torch.rand((n_centers, D), generator=g, device=dev) * 2 - 1
+        test = _fresh(centers, Q, g)
+        q_host = test.cpu().numpy()
+        t0 = time.perf_counter()
+        store = NativeVectorStore.create(os.path.join(tmp, "rows.vstore"),
+                                         dims=D, capacity_rows=OOC_N)
+        for i in range(chunks):
+            gi = torch.Generator(device=dev).manual_seed(SEED + 11 + i)
+            rows = centers[torch.randint(0, n_centers, (OOC_CHUNK,),
+                                         generator=gi, device=dev)]
+            rows += 0.05 * torch.randn((OOC_CHUNK, D), generator=gi,
+                                       device=dev)
+            store.append(rows.cpu().numpy())
+            del rows
+        out["store_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx = ChunkedIndex.from_store(store, chunk_rows=OOC_CHUNK,
+                                      leaf_size=LEAF)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        c0 = idx._chunks[0]
+        nb, d_pad = c0["vb"].shape[0], c0["vb"].shape[1]
+        print(f"[ooc] store of {OOC_N}x{D} written in "
+              f"{out['store_write_s']:.3f} s; from_store in {chunks} chunks "
+              f"of {OOC_CHUNK}: {out['build_s']:.3f} s; nb={nb} d_pad="
+              f"{d_pad} bits={c0['bits']}")
+        if idx.num_chunks != chunks or len(idx) != OOC_N or d_pad != 96:
+            raise AssertionError(f"{idx.num_chunks} chunks, d_pad {d_pad}")
+
+        # the exact oracle over all rows, chunk by chunk on the card
+        cat_i = cat_d = None
+        for i in range(chunks):
+            part = torch.as_tensor(store.rows(i * OOC_CHUNK, OOC_CHUNK),
+                                   device=dev)
+            pi, pd = exact_knn(part, test[:TRUTH_Q], k=K)
+            pi = pi + i * OOC_CHUNK
+            cat_i = pi if cat_i is None else torch.cat([cat_i, pi], 1)
+            cat_d = pd if cat_d is None else torch.cat([cat_d, pd], 1)
+            del part
+        o = torch.argsort(cat_d, dim=1, stable=True)[:, :K]
+        truth = cat_i.gather(1, o)
+
+        env = os.environ.get("VDB_PIN_PIPELINE")
+        torch.cuda.synchronize()
+        bs.bucket_scan.LAUNCHES = 0
+        results = {}
+
+        def run(name, reps=REPS, **kw):
+            got = idx.knn(q_host, K, **kw)
+            ms = _host_ms(lambda: idx.knn(q_host, K, **kw), reps)
+            rec = _recall(torch.as_tensor(got[0][:TRUTH_Q]), truth)
+            results[name] = got
+            out[f"{name}_ms"], out[f"{name}_qps"] = ms, Q / ms * 1e3
+            out[f"{name}_recall"] = rec
+            print(f"[ooc] {name} q={Q}: {ms:.3f} ms, {Q / ms * 1e3:.1f} "
+                  f"QPS, recall@{K} {rec:.4f}")
+
+        run("streamed")
+        t0 = time.perf_counter()
+        idx.pin()
+        torch.cuda.synchronize()
+        out["pin_s"] = time.perf_counter() - t0
+        for flag, name in (("1", "pinned"), ("0", "pinned_seq")):
+            os.environ["VDB_PIN_PIPELINE"] = flag
+            run(name)
+            run(f"{name}_pruned{OOC_PROBES}", probes=OOC_PROBES)
+        if env is None:
+            os.environ.pop("VDB_PIN_PIPELINE")
+        else:
+            os.environ["VDB_PIN_PIPELINE"] = env
+        run("pinned_device_rerank", host_rerank=False)
+        torch.cuda.synchronize()
+        out["launches"] = bs.bucket_scan.LAUNCHES
+        if out["launches"] < 1:
+            raise AssertionError("the chunk path never launched bucket_scan")
+        for a, b in (("pinned", "pinned_seq"), ("streamed", "pinned"),
+                     (f"pinned_pruned{OOC_PROBES}",
+                      f"pinned_seq_pruned{OOC_PROBES}")):
+            if not all(np.array_equal(x, y)
+                       for x, y in zip(results[a], results[b])):
+                raise AssertionError(f"{a} != {b}")
+        hr, hd = results["pinned"]
+        dr, dd = results["pinned_device_rerank"]
+        out["device_rerank_ties"] = _check_knn(dr, dd, hr, hd,
+                                               "knn(host_rerank=False)")
+        # the CPU tests' tolerance for the two reranks (f32 sums of the
+        # same differences in other orders)
+        np.testing.assert_allclose(dd, hd, rtol=1e-4, atol=1e-5)
+        for name in ("streamed", "pinned", "pinned_device_rerank"):
+            if out[f"{name}_recall"] < 0.98:
+                raise AssertionError(f"{name} recall@{K} "
+                                     f"{out[name + '_recall']} < 0.98")
+        print(f"[ooc] pin {out['pin_s']:.3f} s; pinned pipelined == "
+              f"sequential (full and pruned {OOC_PROBES}) and streamed == "
+              f"pinned, bitwise; the device rerank's ids == the host "
+              f"rerank's ({out['device_rerank_ties']} ties at the k-th); "
+              f"bucket_scan launches {out['launches']}")
+
+        # where a pinned batch's time goes: a chunk's scan + shortlist on
+        # the card, and its host rerank alone
+        pack = idx._device_pack(idx._pinned[0], c0,
+                                vectors=torch.empty((0, D), device=dev))
+        out["shortlist_ms_per_chunk"] = _ms(
+            lambda: pallas_scan_knn_candidates(pack, test, k=K), REPS)
+        short = pallas_scan_knn_candidates(pack, test, k=K).cpu().numpy()
+        out["host_rerank_ms_per_chunk"] = _host_ms(
+            lambda: idx._host_rerank(c0, short, q_host, K), REPS)
+        print(f"[ooc] per chunk: scan + shortlist on the card "
+              f"{out['shortlist_ms_per_chunk']:.3f} ms, host rerank "
+              f"{out['host_rerank_ms_per_chunk']:.3f} ms")
+
+        # the kernel alone at one pinned chunk's shape, full and pruned
+        vb, vn = idx._pinned[0]
+        qb = torch.zeros((Q, d_pad), device=dev)
+        qb[:, :D] = test
+        qb = qb.bfloat16()
+        args = dict(m=pack.m, bits=pack.bits)
+        acc_k = bs.bucket_scan(vn, vb, qb, **args)
+        acc_p = bs.bucket_scan_reference(vn, vb, qb, **args)
+        err, mis = _compare_acc(acc_k, acc_p, pack, qb)
+        k_ms = _ms(lambda: bs.bucket_scan(vn, vb, qb, **args), REPS)
+        p_ms = _ms(lambda: bs.bucket_scan_reference(vn, vb, qb, **args),
+                   REPS)
+        block_bytes = d_pad * pack.block * 2 + pack.block * 4
+        kern = _numbers(k_ms, 2 * Q * nb * pack.block * d_pad,
+                        nb * block_bytes + _nbytes(qb, acc_k), PEAK_BF16,
+                        _matmul_ms(qb, vb, nb))
+        pack.cent = torch.as_tensor(c0["cent"], device=dev)
+        pack.rad = torch.as_tensor(c0["rad"], device=dev)
+        order, bmap = _block_map(pack, test, q_tile=512, probes=OOC_PROBES)
+        qs = qb[order]
+        pargs = dict(args, bmap=bmap, nprobe=OOC_PROBES, q_tile=512)
+        perr, _ = _compare_acc(bs.bucket_scan(vn, vb, qs, **pargs),
+                               bs.bucket_scan_reference(vn, vb, qs, **pargs),
+                               pack, qs)
+        pk_ms = _ms(lambda: bs.bucket_scan(vn, vb, qs, **pargs), REPS)
+        out["kernel"] = dict(kern, max_abs_err=err, block_id_ties=mis,
+                             plain_ms=p_ms, pruned256_ms=pk_ms,
+                             pruned256_max_abs_err=perr, nb=nb, d_pad=d_pad)
+        print(f"[ooc] kernel at a chunk's shape ({Q}x{nb} blocks, d_pad "
+              f"{d_pad}): {k_ms:.3f} ms (the main path's d_pad 128: "
+              f"{main_kernel_ms:.3f} ms), plain {p_ms:.3f} ms, max |score "
+              f"err| {err:.3g}, block-id ties {mis:.2e}; bound "
+              f"{kern['bound_ms']:.3f} ms ({kern['bound_by']}), "
+              f"{kern['pct_of_bound']:.1f}% of bound; torch.matmul "
+              f"{kern['library_ms']:.3f} ms; pruned {OOC_PROBES} "
+              f"{pk_ms:.3f} ms, max |score err| {perr:.3g}")
+        del acc_k, acc_p, pack, vb, vn
+        idx.unpin()
+        store.close()
+        del idx, store
+        torch.cuda.empty_cache()
+        out["small"] = _ooc_small(dev, tmp)
+    return out
+
+
+def _models_phase(dev):
+    """Phase 11: ``MemoryVectorIndex`` of MODEL_N seeded records (find,
+    find_batch, to_bsp with search and locate, remove),
+    ``BoolMatrixIndex`` of MODEL_N x BOOL_P (identify_batch, knn_hamming,
+    find_hamming) and the heap-row round trip of a leaf_size=1 tree."""
+    import numpy as np
+    import torch
+
+    from vector_database_tpu_torch import (
+        BoolMatrixIndex,
+        BSPIndex,
+        MemoryVectorIndex,
+        build_index_fused,
+        locate,
+        search,
+    )
+
+    out = {}
+    rng = np.random.default_rng(SEED + 20)
+    recs = rng.random((MODEL_N, MODEL_D), np.float32) * 2 - 1
+    t0 = time.perf_counter()
+    mem = MemoryVectorIndex([(i, recs[i]) for i in range(MODEL_N)],
+                            vector_selector=lambda r: r[1])
+    out["memindex_build_s"] = time.perf_counter() - t0
+    qs = recs[:MODEL_Q] + 0.01
+    radius = 0.6
+    d2 = ((qs[:, None, :] - recs[None]) ** 2).sum(-1)
+    want = [set(np.nonzero(row <= radius * radius)[0].tolist()) for row in d2]
+    for i in range(MODEL_Q):
+        if {r[0] for r in mem.find(qs[i], radius)} != want[i]:
+            raise AssertionError(f"MemoryVectorIndex.find != oracle, {i}")
+    records, match = mem.find_batch(qs, radius)
+    ids = np.array([r[0] for r in records])
+    if [set(ids[m].tolist()) for m in match] != want:
+        raise AssertionError("MemoryVectorIndex.find_batch != oracle")
+    t0 = time.perf_counter()
+    bsp, records = mem.to_bsp()
+    out["to_bsp_s"] = time.perf_counter() - t0
+    ids = np.array([r[0] for r in records])
+    res = search(bsp, qs, radius)
+    if [set(ids[res.match_rows(i)].tolist()) for i in range(MODEL_Q)] != want:
+        raise AssertionError("to_bsp search != oracle")
+    n_loc = min(4096, len(records))
+    rows = locate(bsp, np.stack([r[1] for r in records[:n_loc]])).cpu()
+    if not torch.equal(rows, torch.arange(n_loc)):
+        raise AssertionError("locate on the trie export missed a record")
+    removed = mem.remove(qs[0], radius)
+    if removed != len(want[0]) or list(mem.find(qs[0], radius)) or \
+            len(mem) != MODEL_N - removed:
+        raise AssertionError("MemoryVectorIndex.remove")
+    matches = sum(len(w) for w in want)
+    print(f"[models] MemoryVectorIndex of {MODEL_N} records in [-1, 1]^"
+          f"{MODEL_D}: built in {out['memindex_build_s']:.3f} s; find and "
+          f"find_batch r={radius} == oracle ({matches} matches); to_bsp "
+          f"{out['to_bsp_s']:.3f} s, search == oracle, locate of {n_loc} "
+          f"records exact; remove of {removed} then find: none")
+
+    bits = rng.random((MODEL_N, BOOL_P)) < 0.5
+    t0 = time.perf_counter()
+    bm = BoolMatrixIndex(bits, leaf_size=8)
+    torch.cuda.synchronize()
+    out["boolmatrix_build_s"] = time.perf_counter() - t0
+    sel = rng.choice(MODEL_N, BOOL_Q, replace=False)
+    if not np.array_equal(bm.identify_batch(bits[sel]).cpu().numpy(), sel):
+        raise AssertionError("identify_batch did not return each row")
+    signed = bits.astype(np.float32) * 2 - 1
+    ham = ((BOOL_P - signed[sel[:MODEL_Q]] @ signed.T) / 2).astype(np.int32)
+    rows, dist = bm.knn_hamming(bits[sel[:MODEL_Q]], k=K)
+    true = np.take_along_axis(ham, rows, 1)
+    if not (np.array_equal(true, dist)
+            and np.array_equal(dist, np.sort(ham, 1)[:, :K])):
+        raise AssertionError("knn_hamming != oracle")
+    max_dist = 16
+    found = bm.find_hamming(bits[sel[:MODEL_Q]], max_dist)
+    for i, (r, dd) in enumerate(found):
+        if set(r.tolist()) != set(np.nonzero(ham[i] <= max_dist)[0].tolist()) \
+                or not np.array_equal(ham[i][r], dd):
+            raise AssertionError(f"find_hamming != oracle, query {i}")
+    print(f"[models] BoolMatrixIndex {MODEL_N}x{BOOL_P}: built in "
+          f"{out['boolmatrix_build_s']:.3f} s; identify_batch of {BOOL_Q} "
+          f"stored rows returns each row; knn_hamming and find_hamming "
+          f"(<= {max_dist}: {sum(len(r) for r, _ in found)} rows) == oracle")
+
+    tree = build_index_fused(recs, leaf_size=1)
+    heap = list(tree.heap_rows())
+    back = list(BSPIndex.from_heap_rows(heap, recs).heap_rows())
+    if back != heap:
+        raise AssertionError("heap_rows -> from_heap_rows round trip")
+    out["heap_rows"] = len(heap)
+    print(f"[models] heap_rows -> from_heap_rows -> heap_rows on a "
+          f"leaf_size=1 tree of {MODEL_N}x{MODEL_D}: {len(heap)} rows, "
+          f"equal")
+    return out
+
+
 def main():
     import torch
 
@@ -1051,6 +1464,11 @@ def main():
     # ---- 9. the mutable collections ----------------------------------------
     dyn = _dynamic_phase(dev)
     store = _store_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 10. out-of-core serving; 11. the in-memory models --------------
+    ooc = _ooc_phase(dev, k_ms)
+    models = _models_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -1060,6 +1478,8 @@ def main():
     )}))
     print(json.dumps({"tail_m1000": tail}))
     print(json.dumps({"mutable": dict(dynamic=dyn, store=store)}))
+    print(json.dumps({"out_of_core": dict(ooc, n=OOC_N, chunk=OOC_CHUNK,
+                                          d=D, q=Q, models=models)}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
@@ -1084,6 +1504,13 @@ def main():
             dyn["kernel_masked_pruned256_plain_ms"],
         "m1000_launches": tail["launches"]["bucket_scan"],
         "m1000_max_abs_err": tail["bfloat16"]["max_abs_err"],
+        "chunk_launches": ooc["launches"],
+        "chunk_d96_ms": ooc["kernel"]["ms"],
+        "chunk_d96_plain_ms": ooc["kernel"]["plain_ms"],
+        "chunk_d96_bound_ms": ooc["kernel"]["bound_ms"],
+        "chunk_d96_library_ms": ooc["kernel"]["library_ms"],
+        "chunk_d96_max_abs_err": ooc["kernel"]["max_abs_err"],
+        "chunk_d96_pruned256_ms": ooc["kernel"]["pruned256_ms"],
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",

@@ -16,9 +16,11 @@ partial tile in the grid's last CTA; int8 blocks of 1000 columns lie in
 rows padded to 16 bytes (``pad_rows``), as ``pack_database`` lays them;
 slices that start off 16-byte boundaries (m 125 or 250 in blocks of
 1000) are scanned from a copy in aligned slices (``pad_slices``).
-Two builds of one input give the same tree.
+Two builds of one input give the same tree. A ``ChunkedIndex`` of three
+chunks serves pinned, pipelined or not, and streamed, with equal results.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -425,3 +427,106 @@ def test_build_gives_one_tree_per_input_on_card(cuda_device):
                   "orig_row"):
         ta, tb = getattr(a, field), getattr(b, field)
         assert torch.equal(ta.view(torch.int32), tb.view(torch.int32)), field
+
+
+@pytest.fixture(scope="module")
+def chunked_96():
+    """A ChunkedIndex of 3 chunks x 50,000 x 96 clustered rows on the card
+    (block 8192, 4096 buckets, d_pad 96: the chunk path's shapes), with
+    256 queries from the same distribution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from vector_database_tpu_torch import ChunkedIndex
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    centers = torch.rand((150, 96), generator=g, device=dev) * 2 - 1
+
+    def rows(n):
+        pick = torch.randint(0, 150, (n,), generator=g, device=dev)
+        return centers[pick] + 0.05 * torch.randn((n, 96), generator=g,
+                                                  device=dev)
+
+    index = ChunkedIndex(leaf_size=16)
+    data = rows(150_000).cpu().numpy()
+    for lo in range(0, 150_000, 50_000):
+        index.add_chunk(data[lo:lo + 50_000])
+    return index, data, rows(256).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_chunked_pinned_pipeline_equals_sequential_on_card(chunked_96,
+                                                           monkeypatch):
+    """The pipelined pinned loop (all scans launched, shortlists copied to
+    pinned host memory behind events, then the host reranks) equals the
+    sequential loop bit for bit, full and pruned, over 3 chunks; and both
+    equal streamed serving."""
+    index, _, q = chunked_96
+    assert index.num_chunks == 3 and index._chunks[0]["vb"].shape[1] == 96
+    modes = [dict(), dict(probes=4)]
+    streamed = [index.knn(q, k=10, **mode) for mode in modes]
+    index.pin()
+    try:
+        got = {}
+        for flag in ("1", "0"):
+            monkeypatch.setenv("VDB_PIN_PIPELINE", flag)
+            before = tbs.bucket_scan.LAUNCHES
+            got[flag] = [index.knn(q, k=10, **mode) for mode in modes]
+            assert tbs.bucket_scan.LAUNCHES == before + 6
+        for a, b, s in zip(got["1"], got["0"], streamed):
+            for x, y, z in zip(a, b, s):
+                np.testing.assert_array_equal(x, y)
+                np.testing.assert_array_equal(x, z)
+    finally:
+        index.unpin()
+
+
+@pytest.mark.cuda
+def test_chunked_pinned_buffers_bf16_and_host_rerank_on_card(chunked_96):
+    index, data, q = chunked_96
+    index.pin()
+    try:
+        assert len(index._pinned) == 3
+        for vb, vn in index._pinned:
+            assert vb.dtype == torch.bfloat16 and vb.is_cuda
+            assert vn.dtype == torch.float32
+        rh, dh = index.knn(q, k=10)
+        rd, dd = index.knn(q, k=10, host_rerank=False)
+    finally:
+        index.unpin()
+    # the two reranks sum in other orders: equal sets, close distances
+    assert [set(r) for r in rh.tolist()] == [set(r) for r in rd.tolist()]
+    np.testing.assert_allclose(dh, dd, rtol=1e-5, atol=1e-5)
+    # every returned distance is the true one of the returned row
+    true = ((data[rh] - q[:, None, :]) ** 2).sum(-1)
+    np.testing.assert_allclose(dh, true, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pruned", [False, True])
+def test_bf16_kernel_at_chunk_shape_on_card(cuda_device, pruned):
+    """d_pad 96 (the chunk path's d_align 16), block 8192, m 4096: the
+    kernel's 32-row contraction chunks and zero-filled second query box,
+    bitwise equal to the plain version on exact inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    vn, vb, q = _exact_bf16(g, cuda_device, 7, 96, 8192, 512)
+    assert tbs.scan_plan(512, 96).kc == 32
+    args = dict(m=4096, bits=3)
+    if pruned:
+        args.update(bmap=torch.tensor([[6, 0, 2, 5], [1, 3, 0, 4]],
+                                      dtype=torch.int32, device=cuda_device),
+                    nprobe=4, q_tile=256)
+    got = tbs.bucket_scan(vn, vb, q, **args)
+    assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, **args))
+
+
+@pytest.mark.cuda
+def test_store_to_device_equals_rows_on_card(cuda_device, tmp_path):
+    from vector_database_tpu_torch import NativeVectorStore
+
+    data = np.random.default_rng(18).random((70_001, 96), np.float32)
+    with NativeVectorStore.create(str(tmp_path / "v"), dims=96) as store:
+        store.append(data)
+        got = store.to_device(chunk_rows=20_000)
+        assert got.is_cuda and got.shape == (70_001, 96)
+        np.testing.assert_array_equal(got.cpu().numpy(), data)

@@ -26,6 +26,12 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.ops.scan_knn",
     "vector_database_tpu_torch.dynamic",
     "vector_database_tpu_torch.document_store",
+    "vector_database_tpu_torch.out_of_core",
+    "vector_database_tpu_torch.runtime.native_store",
+    "vector_database_tpu_torch.models.memindex",
+    "vector_database_tpu_torch.models.boolmatrix",
+    "vector_database_tpu_torch.utils.arff",
+    "vector_database_tpu_torch.utils.profiling",
 ])
 def test_import_leaves_jax_out(module):
     code = (

@@ -37,7 +37,10 @@ tensors each kernel's plain torch version runs instead.
 from vector_database_tpu_torch.builder import build_index_fused
 from vector_database_tpu_torch.document_store import DocumentStore
 from vector_database_tpu_torch.dynamic import DynamicIndex
+from vector_database_tpu_torch.models.boolmatrix import BoolMatrixIndex
 from vector_database_tpu_torch.models.bsp import BSPIndex
+from vector_database_tpu_torch.models.memindex import MemoryVectorIndex
+from vector_database_tpu_torch.out_of_core import ChunkedIndex
 from vector_database_tpu_torch.ops.exact import (
     exact_ball,
     exact_knn,
@@ -53,6 +56,7 @@ from vector_database_tpu_torch.ops.packed_knn import (
     pallas_scan_knn_packed_rt,
 )
 from vector_database_tpu_torch.ops.scan_knn import scan_knn
+from vector_database_tpu_torch.runtime.native_store import NativeVectorStore
 from vector_database_tpu_torch.search import (
     SearchResult,
     calibrate_radius,
@@ -66,8 +70,12 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BSPIndex",
+    "BoolMatrixIndex",
+    "ChunkedIndex",
     "DocumentStore",
     "DynamicIndex",
+    "MemoryVectorIndex",
+    "NativeVectorStore",
     "PackedDB",
     "PackedServer",
     "SearchResult",
