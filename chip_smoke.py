@@ -72,7 +72,8 @@ Phases (each raises on failure; nothing is caught):
    chunk's scan and host rerank timed alone; the bf16 kernel's launch
    count must rise. Then the kernel alone at a pinned chunk's shape
    (d_pad 96, 1221 blocks), full and pruned 256, against its plain
-   version, with its bound and ``torch.matmul`` yardstick. Small checks at
+   version, with its bound and ``torch.matmul`` yardstick (the pruned one
+   too: its plain time, bound and yardstick). Small checks at
    1M x 8 in 4 chunks: ``search`` equal to ``exact_ball``; ``save`` ->
    ``load``, ``spill_dir`` and a checkpointed ``from_store`` stopped after
    chunk 2 and resumed, each serving the same answers bit for bit;
@@ -82,9 +83,25 @@ Phases (each raises on failure; nothing is caught):
    (``identify_batch`` of 4096 stored rows, ``knn_hamming``,
    ``find_hamming``), each against a numpy oracle, and ``heap_rows`` ->
    ``from_heap_rows`` of a leaf_size=1 tree of 100,000 x 8.
+12. the multi-device layer on ``make_mesh()``: a world of one rank over
+   NCCL (the script needs one GPU, and NCCL takes one rank per GPU).
+   The 10M x 96 rows of phase 3 made again: ``build_index_sharded`` equal
+   to ``build_index_fused`` field by field (at one rank every collective
+   returns its input's bits), both timed; ``to_bsp`` the same tree;
+   ``pack_database_sharded`` + ``sharded_scan_knn`` at q=4096 (full,
+   static pruned 256, runtime pruned 256 with ``probes_max=320``) equal to
+   the single-device scan (ids through ``orig_row``, distances bitwise);
+   ``PackedServer`` over the sharded pack (QPS, recall@10 >= 0.98) beside
+   the single-device server; the bf16 kernel's launch count must rise in
+   the sharded serve; at 1M x 8, ``search_global``/``knn_global``,
+   ``build_forest`` + ``forest_knn``, ``search_sharded``/``knn_sharded``
+   and ``build_index_multislice(n_slices=1)`` with ``knn_multislice``/
+   ``search_multislice`` against the oracles. The process group is
+   destroyed at the end.
 
 It prints the card's name and power limit, one JSON line each of the
-main path's, phase 7's, phase 9's and phases 10-11's results, one JSON
+main path's, phase 7's, phase 9's, phases 10-11's and phase 12's
+(``{"mesh": ...}``) results, one JSON
 line of kernel results (each kernel with its time, its
 plain version's, its bound from this run's shapes and the card's
 published peaks, the library yardstick, TFLOP/s and share of the bound),
@@ -923,9 +940,22 @@ def _ooc_phase(dev, main_kernel_ms):
                                bs.bucket_scan_reference(vn, vb, qs, **pargs),
                                pack, qs)
         pk_ms = _ms(lambda: bs.bucket_scan(vn, vb, qs, **pargs), REPS)
+        pp_ms = _ms(lambda: bs.bucket_scan_reference(vn, vb, qs, **pargs),
+                    REPS)
+        # every query streams OOC_PROBES blocks; the blocks some group
+        # reads cross HBM once
+        read = torch.unique(bmap[:, :OOC_PROBES]).numel()
+        pkern = _numbers(pk_ms, 2 * Q * OOC_PROBES * pack.block * d_pad,
+                         read * block_bytes + _nbytes(qs, acc_k), PEAK_BF16,
+                         _matmul_ms(qb, vb, OOC_PROBES))
         out["kernel"] = dict(kern, max_abs_err=err, block_id_ties=mis,
                              plain_ms=p_ms, pruned256_ms=pk_ms,
-                             pruned256_max_abs_err=perr, nb=nb, d_pad=d_pad)
+                             pruned256_max_abs_err=perr,
+                             pruned256_plain_ms=pp_ms,
+                             pruned256_bound_ms=pkern["bound_ms"],
+                             pruned256_bound_by=pkern["bound_by"],
+                             pruned256_library_ms=pkern["library_ms"],
+                             nb=nb, d_pad=d_pad)
         print(f"[ooc] kernel at a chunk's shape ({Q}x{nb} blocks, d_pad "
               f"{d_pad}): {k_ms:.3f} ms (the main path's d_pad 128: "
               f"{main_kernel_ms:.3f} ms), plain {p_ms:.3f} ms, max |score "
@@ -933,7 +963,10 @@ def _ooc_phase(dev, main_kernel_ms):
               f"{kern['bound_ms']:.3f} ms ({kern['bound_by']}), "
               f"{kern['pct_of_bound']:.1f}% of bound; torch.matmul "
               f"{kern['library_ms']:.3f} ms; pruned {OOC_PROBES} "
-              f"{pk_ms:.3f} ms, max |score err| {perr:.3g}")
+              f"{pk_ms:.3f} ms, plain {pp_ms:.3f} ms, max |score err| "
+              f"{perr:.3g}, bound {pkern['bound_ms']:.3f} ms "
+              f"({pkern['bound_by']}), {pkern['pct_of_bound']:.1f}% of "
+              f"bound; torch.matmul {pkern['library_ms']:.3f} ms")
         del acc_k, acc_p, pack, vb, vn
         idx.unpin()
         store.close()
@@ -1035,6 +1068,243 @@ def _models_phase(dev):
     print(f"[models] heap_rows -> from_heap_rows -> heap_rows on a "
           f"leaf_size=1 tree of {MODEL_N}x{MODEL_D}: {len(heap)} rows, "
           f"equal")
+    return out
+
+
+def _same_sharded_tree(sharded, fused):
+    """A world-of-one ``ShardedBSPIndex`` equal to a ``BSPIndex`` field by
+    field, bit for bit (its rank holds every row)."""
+    return _same_tree(sharded, fused) and sharded.leaf_cap == \
+        fused.leaf_cap and _same_bits(sharded.vectors, fused.vectors)
+
+
+def _same_bits(a, b):
+    """Two f32 tensors equal bit for bit."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _mesh_phase(dev, single_qps):
+    """Phase 12: the multi-device layer on ``make_mesh()``, a world of one
+    rank over NCCL. The sharded build of the 10M x D rows against the
+    fused build (field by field), ``to_bsp``; the sharded pack and scan
+    (full, static and runtime pruned 256) against the single-device scan
+    on the same rows (ids through ``orig_row``, distances bitwise);
+    ``PackedServer`` over the sharded pack (QPS, recall@10) beside the
+    single-device server; the bf16 kernel's launches during the sharded
+    serve; then the tree paths at TREE_N x TREE_D against the oracles:
+    ``search_global``/``knn_global``, the forest, the query-sharded
+    search and the one-slice multislice index."""
+    import torch
+    import torch.distributed as dist
+
+    from vector_database_tpu_torch import (
+        PackedServer,
+        build_index_fused,
+        exact_ball,
+        exact_knn,
+        pack_database,
+        pallas_scan_knn_packed,
+        pallas_scan_knn_packed_rt,
+    )
+    from vector_database_tpu_torch import parallel as par
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.search import calibrate_radius
+
+    out = {}
+    t0 = time.perf_counter()
+    mesh = par.make_mesh()
+    out["mesh_s"] = time.perf_counter() - t0
+    out["backend"] = dist.get_backend()
+    out["world_size"] = dist.get_world_size()
+    if out["backend"] != "nccl" or out["world_size"] != 1:
+        raise AssertionError(f"mesh on {out['backend']}, world "
+                             f"{out['world_size']}")
+
+    train, test, _, _ = _clustered(dev, N, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused = build_index_fused(train, leaf_size=LEAF)
+    torch.cuda.synchronize()
+    out["fused_build_s"] = time.perf_counter() - t0
+    # the first sharded build carries NCCL's communicator setup (made at
+    # the first collective); the second is the build alone
+    for key in ("sharded_build_s", "sharded_build_again_s"):
+        t0 = time.perf_counter()
+        sharded = par.build_index_sharded(train, mesh, leaf_size=LEAF)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        if not _same_sharded_tree(sharded, fused):
+            raise AssertionError("sharded build != fused build")
+    del train
+    out["fused_build_vps"] = N / out["fused_build_s"]
+    out["sharded_build_vps"] = N / out["sharded_build_again_s"]
+    # to_bsp relays the leaves in node order: each leaf's run is the fused
+    # tree's run of that leaf, row for row
+    bsp = par.to_bsp(sharded)
+    leaves = torch.nonzero(fused.dim == -1)[:, 0]
+    cnt = fused.leaf_count[leaves].long()
+    src = torch.repeat_interleave(
+        fused.leaf_start[leaves].long() - bsp.leaf_start[leaves].long(), cnt,
+    ) + torch.arange(N, device=dev)
+    if not (torch.equal(bsp.leaf_count, fused.leaf_count)
+            and torch.equal(bsp.dim, fused.dim)
+            and _same_bits(bsp.mid, fused.mid)
+            and _same_bits(bsp.vectors, fused.vectors[src])
+            and torch.equal(bsp.orig_row, fused.orig_row[src])):
+        raise AssertionError("to_bsp != the fused tree")
+    del bsp, src, sharded
+    print(f"[mesh] make_mesh(): {out['backend']}, world size "
+          f"{out['world_size']}; {N}x{D} leaf {LEAF}: fused build "
+          f"{out['fused_build_s']:.3f} s ({out['fused_build_vps']:.1f} "
+          f"vectors/s), sharded build {out['sharded_build_s']:.3f} s "
+          f"(the first collective sets NCCL up), again "
+          f"{out['sharded_build_again_s']:.3f} s "
+          f"({out['sharded_build_vps']:.1f} vectors/s); both: node table, "
+          f"leaf runs, rows and orig_row equal bit for bit; to_bsp the same "
+          f"tree")
+
+    t0 = time.perf_counter()
+    pack = pack_database(fused.vectors, buckets=BUCKETS)
+    torch.cuda.synchronize()
+    out["pack_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sdb = par.pack_database_sharded(fused.vectors, mesh, buckets=BUCKETS,
+                                    orig_rows=fused.orig_row)
+    torch.cuda.synchronize()
+    out["sharded_pack_s"] = time.perf_counter() - t0
+    if not (torch.equal(sdb.vb, pack.vb) and torch.equal(sdb.vn, pack.vn)):
+        raise AssertionError("sharded pack blocks != pack_database's")
+    nb = sdb.vb.shape[0]
+    q_tile, pmax = 512, max(PROBES)
+    truth = fused.orig_row[exact_knn(fused.vectors, test[:TRUTH_Q],
+                                     k=K)[0]]
+
+    # the sharded serve: the launch count covers these calls only
+    torch.cuda.synchronize()
+    bs.bucket_scan.LAUNCHES = 0
+    got = {
+        "full": par.sharded_scan_knn(sdb, test, k=K, q_tile=q_tile),
+        "static256": par.sharded_scan_knn(sdb, test, k=K, q_tile=q_tile,
+                                          probes=256),
+        "runtime256": par.sharded_scan_knn(sdb, test, k=K, q_tile=q_tile,
+                                           probes=256, probes_max=pmax),
+    }
+    srv = PackedServer(sdb, k=K, batch=Q)
+    srv.warmup()
+    ms = _ms(lambda: srv.query(test), REPS)
+    rec = _recall(srv.query(test)[0][:TRUTH_Q], truth)
+    out.update(sharded_full_ms=ms, sharded_full_qps=Q / ms * 1e3,
+               sharded_full_recall=rec)
+    psrv = PackedServer(sdb, k=K, batch=Q, probes=256, probes_max=pmax)
+    psrv.warmup()
+    ms = _ms(lambda: psrv.query(test), REPS)
+    out.update(sharded_probes256_ms=ms, sharded_probes256_qps=Q / ms * 1e3,
+               sharded_probes256_recall=_recall(
+                   psrv.query(test)[0][:TRUTH_Q], truth))
+    torch.cuda.synchronize()
+    out["launches"] = bs.bucket_scan.LAUNCHES
+    if out["launches"] < 1:
+        raise AssertionError("the sharded serve never launched bucket_scan")
+    if rec < 0.98:
+        raise AssertionError(f"sharded full-scan recall@{K} {rec} < 0.98")
+
+    # the single-device path on the same rows, rows mapped through orig_row
+    want = {
+        "full": pallas_scan_knn_packed(pack, test, k=K, q_tile=q_tile),
+        "static256": pallas_scan_knn_packed(pack, test, k=K, q_tile=q_tile,
+                                            probes=256),
+        "runtime256": pallas_scan_knn_packed_rt(pack, test, 256, k=K,
+                                                probes_max=pmax,
+                                                q_tile=q_tile),
+    }
+    for name, (r, d) in want.items():
+        gr, gd = got[name]
+        r = torch.where(r >= 0, fused.orig_row[r.clamp(min=0)].long(), -1)
+        if not (torch.equal(gr, r) and _same_bits(gd, d)):
+            raise AssertionError(f"sharded {name} scan != single-device")
+    if not all(torch.equal(a, b) for a, b in zip(got["runtime256"],
+                                                 got["static256"])):
+        raise AssertionError("sharded runtime probes != static probes")
+    one = PackedServer(pack, k=K, batch=Q)
+    one.warmup()
+    ms = _ms(lambda: one.query(test), REPS)
+    out.update(single_full_ms=ms, single_full_qps=Q / ms * 1e3,
+               main_path_full_qps=single_qps)
+    print(f"[mesh] pack_database_sharded {out['sharded_pack_s']:.3f} s "
+          f"(pack_database {out['pack_s']:.3f} s), blocks equal; "
+          f"sharded_scan_knn q={Q} full, static and runtime pruned 256 == "
+          f"the single-device scan (ids through orig_row, distances "
+          f"bitwise); PackedServer over the sharded pack: full "
+          f"{out['sharded_full_ms']:.3f} ms, {out['sharded_full_qps']:.1f} "
+          f"QPS, recall@{K} {rec:.4f}; pruned 256 "
+          f"{out['sharded_probes256_ms']:.3f} ms, "
+          f"{out['sharded_probes256_qps']:.1f} QPS, recall@{K} "
+          f"{out['sharded_probes256_recall']:.4f}; single-device server "
+          f"here {out['single_full_ms']:.3f} ms, {out['single_full_qps']:.1f}"
+          f" QPS (phase 3: {single_qps:.1f} QPS); bucket_scan launches in "
+          f"the sharded serve {out['launches']}")
+    del srv, psrv, one, pack, sdb, got, want, fused, test, truth
+    torch.cuda.empty_cache()
+
+    # the tree paths at phase 5's size, each against the oracle
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    v8 = torch.rand((TREE_N, TREE_D), generator=g, device=dev) * 2 - 1
+    q8 = torch.rand((64, TREE_D), generator=g, device=dev) * 2 - 1
+    radius = calibrate_radius(v8, q8, K, 0.95)
+    ball = exact_ball(v8, q8, radius)
+    erows, ed2 = exact_knn(v8, q8, k=K)
+    want_ball = [set(torch.nonzero(ball[i])[:, 0].tolist())
+                 for i in range(q8.shape[0])]
+
+    def check_ball(rows, what):
+        for i, w in enumerate(want_ball):
+            r = rows[i]
+            if set(r[r >= 0].tolist()) != w:
+                raise AssertionError(f"{what} != exact_ball, query {i}")
+
+    def check_knn(rows, d2, what):
+        full = torch.isfinite(d2).all(dim=1)
+        for i in torch.nonzero(full)[:, 0].tolist():
+            if set(rows[i].tolist()) != set(erows[i].tolist()):
+                raise AssertionError(f"{what} != exact_knn, query {i}")
+        return int(full.sum())
+
+    t0 = time.perf_counter()
+    t8 = par.build_index_sharded(v8, mesh, leaf_size=16)
+    torch.cuda.synchronize()
+    out["tree_sharded_build_s"] = time.perf_counter() - t0
+    tree = build_index_fused(v8, leaf_size=16)
+    # in 8 dimensions a ball of this radius meets most leaves, and the
+    # sharded paths keep JAX's fixed leaf buffer (no auto-grow): a buffer
+    # of every leaf cannot overflow
+    ml = tree.num_leaves
+    _, _, _, ov = res = par.search_global(t8, q8, radius, max_leaves=ml)
+    if bool(ov.any()):
+        raise AssertionError("search_global overflowed every leaf")
+    check_ball(res[0], "search_global")
+    full = check_knn(*par.knn_global(t8, q8, K, radius, max_leaves=ml),
+                     "knn_global")
+    fo = par.build_forest(v8, mesh, leaf_size=16)
+    check_knn(*par.forest_knn(fo, q8, K, radius, max_leaves=ml)[:2],
+              "forest_knn")
+    check_ball(par.search_sharded(tree, q8, radius, mesh).rows,
+               "search_sharded")
+    check_knn(*par.knn_sharded(tree, q8, K, radius, mesh), "knn_sharded")
+    ms1 = par.build_index_multislice(v8, n_slices=1, leaf_size=16)
+    check_knn(*par.knn_multislice(ms1, q8, K, radius, max_leaves=ml),
+              "knn_multislice")
+    check_ball(par.search_multislice(ms1, q8, radius, max_leaves=ml)[0],
+               "search_multislice")
+    print(f"[mesh] {TREE_N}x{TREE_D}: sharded build "
+          f"{out['tree_sharded_build_s']:.3f} s; search_global, "
+          f"search_sharded, search_multislice == exact_ball; knn_global, "
+          f"forest_knn, knn_sharded, knn_multislice == exact_knn on {full} "
+          f"full rows")
+    del v8, q8, t8, fo, tree, ms1, ball, res
+    dist.destroy_process_group()
     return out
 
 
@@ -1469,6 +1739,10 @@ def main():
     # ---- 10. out-of-core serving; 11. the in-memory models --------------
     ooc = _ooc_phase(dev, k_ms)
     models = _models_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the mesh at world size 1 over NCCL -------------------------
+    mesh = _mesh_phase(dev, results["full"]["qps"])
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -1480,6 +1754,7 @@ def main():
     print(json.dumps({"mutable": dict(dynamic=dyn, store=store)}))
     print(json.dumps({"out_of_core": dict(ooc, n=OOC_N, chunk=OOC_CHUNK,
                                           d=D, q=Q, models=models)}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
@@ -1511,6 +1786,12 @@ def main():
         "chunk_d96_library_ms": ooc["kernel"]["library_ms"],
         "chunk_d96_max_abs_err": ooc["kernel"]["max_abs_err"],
         "chunk_d96_pruned256_ms": ooc["kernel"]["pruned256_ms"],
+        "chunk_d96_pruned256_plain_ms": ooc["kernel"]["pruned256_plain_ms"],
+        "chunk_d96_pruned256_bound_ms": ooc["kernel"]["pruned256_bound_ms"],
+        "chunk_d96_pruned256_bound_by": ooc["kernel"]["pruned256_bound_by"],
+        "chunk_d96_pruned256_library_ms":
+            ooc["kernel"]["pruned256_library_ms"],
+        "sharded_launches": mesh["launches"],
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",

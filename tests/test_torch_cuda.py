@@ -18,6 +18,9 @@ slices that start off 16-byte boundaries (m 125 or 250 in blocks of
 1000) are scanned from a copy in aligned slices (``pad_slices``).
 Two builds of one input give the same tree. A ``ChunkedIndex`` of three
 chunks serves pinned, pipelined or not, and streamed, with equal results.
+On ``make_mesh()``, a world of one rank over NCCL, the sharded build and
+the sharded scan of 1M x 96 float rows equal the single-device ones bit
+for bit (every collective of one rank returns its input's bits).
 """
 
 import numpy as np
@@ -530,3 +533,72 @@ def test_store_to_device_equals_rows_on_card(cuda_device, tmp_path):
         got = store.to_device(chunk_rows=20_000)
         assert got.is_cuda and got.shape == (70_001, 96)
         np.testing.assert_array_equal(got.cpu().numpy(), data)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """``make_mesh()`` on the card: a world of one rank over NCCL, torn
+    down after the module's mesh tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the mesh runs over NCCL")
+    import torch.distributed as dist
+
+    from vector_database_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _clustered_96(dev, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.rand((n // 1000, 96), generator=g, device=dev) * 2 - 1
+    x = centers[torch.randint(0, n // 1000, (n,), generator=g, device=dev)]
+    q = centers[torch.randint(0, n // 1000, (512,), generator=g, device=dev)]
+    return (x + 0.05 * torch.randn(x.shape, generator=g, device=dev),
+            q + 0.05 * torch.randn(q.shape, generator=g, device=dev))
+
+
+@pytest.mark.cuda
+def test_sharded_build_equals_fused_build_on_card(nccl_mesh):
+    """At one rank every collective returns its input's bits: the sharded
+    build of 1M x 96 float rows is the fused build, field by field."""
+    from vector_database_tpu_torch import build_index_fused
+    from vector_database_tpu_torch.parallel import build_index_sharded
+
+    x, _ = _clustered_96(torch.device("cuda"), 1_000_000, 19)
+    a = build_index_fused(x, leaf_size=16)
+    b = build_index_sharded(x, nccl_mesh, leaf_size=16)
+    assert (a.depth, a.num_leaves, a.leaf_cap) == \
+        (b.depth, b.num_leaves, b.leaf_cap)
+    for field in ("dim", "mid", "low", "high", "leaf_start", "leaf_count",
+                  "orig_row", "vectors"):
+        ta, tb = getattr(a, field), getattr(b, field)
+        assert torch.equal(ta.view(torch.int32), tb.view(torch.int32)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probes", [None, 16])
+def test_sharded_scan_equals_single_device_scan_on_card(nccl_mesh, probes):
+    """The sharded scan of a world of one is the single-device scan: ids
+    equal through ``orig_rows``, distances bitwise, full and pruned."""
+    from vector_database_tpu_torch import pack_database, pallas_scan_knn_packed
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.parallel import (
+        pack_database_sharded,
+        sharded_scan_knn,
+    )
+
+    x, q = _clustered_96(torch.device("cuda"), 1_000_000, 20)
+    ids = torch.randperm(x.shape[0], device=x.device).to(torch.int32)
+    db = pack_database_sharded(x, nccl_mesh, buckets=4096, orig_rows=ids)
+    before = bs.bucket_scan.LAUNCHES
+    got_r, got_d = sharded_scan_knn(db, q, k=10, q_tile=256, probes=probes)
+    torch.cuda.synchronize()
+    assert bs.bucket_scan.LAUNCHES > before
+    r, d = pallas_scan_knn_packed(pack_database(x, buckets=4096), q, k=10,
+                                  q_tile=256, probes=probes)
+    assert torch.equal(got_r, torch.where(r >= 0, ids[r.clamp(min=0)].long(),
+                                          -1))
+    assert torch.equal(got_d.view(torch.int32), d.view(torch.int32))

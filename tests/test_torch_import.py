@@ -32,6 +32,14 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.models.boolmatrix",
     "vector_database_tpu_torch.utils.arff",
     "vector_database_tpu_torch.utils.profiling",
+    "vector_database_tpu_torch.ops.collectives",
+    "vector_database_tpu_torch.parallel",
+    "vector_database_tpu_torch.parallel.mesh",
+    "vector_database_tpu_torch.parallel.global_tree",
+    "vector_database_tpu_torch.parallel.forest",
+    "vector_database_tpu_torch.parallel.query",
+    "vector_database_tpu_torch.parallel.scan",
+    "vector_database_tpu_torch.parallel.multislice",
 ])
 def test_import_leaves_jax_out(module):
     code = (
@@ -45,6 +53,37 @@ def test_import_leaves_jax_out(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_parallel_names_match_the_jax_package():
+    """Every public name of the JAX ``parallel`` package has a
+    counterpart in the port's (read from the source: the test process
+    keeps the JAX package out of this check's way)."""
+    import ast
+
+    import vector_database_tpu_torch.parallel as tp
+
+    src = (REPO / "vector_database_tpu" / "parallel" / "__init__.py")
+    tree = ast.parse(src.read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and node.targets[0].id == "__all__")
+    assert set(names) <= set(tp.__all__)
+    assert all(hasattr(tp, name) for name in names)
+
+
+def test_mesh_on_cuda_without_a_gpu_raises():
+    """No fallback: a ``cuda`` mesh on a machine without a card raises
+    before any process group starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import torch.distributed as dist
+
+    from vector_database_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        make_mesh()
+    assert not dist.is_initialized()
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

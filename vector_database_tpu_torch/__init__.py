@@ -26,7 +26,13 @@ The ported slices are the main path and the int8 capacity path:
   store-wide serving index), over the blocked streaming scan
   ``scan_knn`` (``ops/scan_knn.py``);
 - ``locate``, the exact-match point lookup by single-branch descent, and
-  the reference's ``tie_break="mean_id"`` build.
+  the reference's ``tie_break="mean_id"`` build;
+- out-of-core serving (``ChunkedIndex`` over ``NativeVectorStore``) and
+  the in-memory models;
+- the multi-device layer, ``parallel`` (one process per device on
+  ``torch.distributed``): the sharded global-tree build, the query-sharded
+  search, the forest, sharded scan serving (``PackedServer`` takes a
+  ``ShardedPackedDB``) and the multi-slice index.
 
 Tensors stay on the device they are given (or the ``device=`` argument);
 host data with no ``device=`` goes to the card (``cuda``), as the JAX

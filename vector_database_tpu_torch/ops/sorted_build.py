@@ -32,11 +32,30 @@ reference rule: plane ties go high when ``id > floor(sum_ids / count)``,
 and zero-variance segments split by that rule alone (rows move). The
 segment id sums are one int64 prefix sum, where the TPU program summed
 int32 limbs (``_exact_mean_id``); the quotient is the same exact integer.
+
+**Sharded form** (``group=``, the JAX program's ``axis_name``): every rank
+of a ``torch.distributed`` process group runs the same level loop on its
+own row shard, and each segment owns one contiguous run on every rank.
+Per level the ranks all-reduce the segment counts, the boundary moments,
+the subsampled counts, the split plane's numerator, the low counts behind
+the zero-progress guard and, under ``mean_id``, the segment id sums; one
+all-gather of the ``[S]`` counts gives each rank the global rank of its
+first row in every segment, for positional ties. Rows never leave their
+rank. Node tables come out identical on every rank, leaf runs local. The
+one host sync per level reads the all-reduced counts, so every rank runs
+the same levels and the same collectives in the same order. With one
+rank every collective returns its input's bits: the tree is the
+single-device tree.
 """
 
 from __future__ import annotations
 
 import torch
+
+from vector_database_tpu_torch.ops.collectives import (
+    all_reduce,
+    exclusive_prefix,
+)
 
 # dimensions per prefix-scan pass: bounds the [chunk, N/k] transients
 _D_CHUNK = 128
@@ -106,6 +125,7 @@ def sorted_build(
     tie_break: str = "positional",
     progress_cb=None,
     split: str = "alternate",
+    group=None,
 ):
     """Run the level-synchronous build.
 
@@ -114,8 +134,18 @@ def sorted_build(
     entries, ``sorted_vectors`` in leaf-major order and ``perm_rows[i]``
     the original row stored at position ``i``. ``s_max`` and ``m_max``
     bound the live segments and nodes (checked, not used for sizing).
+
+    ``group``: a process group whose ranks each pass their own row shard
+    (``n_valid`` real rows, global ``row_ids``); ``s_max``, ``m_max`` and
+    ``max_levels`` then bound the global tree. Node arrays come out
+    identical on every rank; ``leaf_start``/``leaf_count``, the rows and
+    ``perm_rows`` are this rank's.
     """
     mean_id_ties = tie_break == "mean_id"
+    if group is None:
+        psum = lambda x: x  # noqa: E731
+    else:
+        psum = lambda x: all_reduce(x, group)  # noqa: E731
     n, d = vectors.shape
     dev = vectors.device
     i64 = dict(dtype=torch.int64, device=dev)
@@ -142,7 +172,7 @@ def sorted_build(
         active = pseg >= 0
         ps = torch.where(active, pseg, 0)
         ends = seg_start + seg_cnt
-        g_cnt = seg_cnt
+        g_cnt = psum(seg_cnt)  # global per-segment count
         if progress_cb is not None:
             progress_cb(level, s_live, int(g_cnt.sum()))
 
@@ -162,11 +192,11 @@ def sorted_build(
             pre = prefix_sum(xc * xc)
             sumsq_c.append(at(pre, s_hi) - at(pre, s_lo))
             del pre, xc
-        sums = torch.cat(sums_c, dim=0).T  # [S, D]
-        sumsq = torch.cat(sumsq_c, dim=0).T
+        sums = psum(torch.cat(sums_c, dim=0)).T  # [S, D]
+        sumsq = psum(torch.cat(sumsq_c, dim=0)).T
 
         cnt_f = torch.clamp(g_cnt, min=1).to(torch.float32)
-        cnt_sub = s_hi - s_lo
+        cnt_sub = psum(s_hi - s_lo)
         cnt_sub_f = torch.clamp(cnt_sub, min=1).to(torch.float32)
         mean_sub = sums / cnt_sub_f[:, None]
         # XLA evaluates ``sumsq - (cnt * mean) * mean`` as one fused
@@ -185,6 +215,8 @@ def sorted_build(
             cnt_sub == 0
         )
         is_int = (g_cnt > leaf_size) & (level < max_levels - 1)
+        # global rank of this shard's first row in each segment
+        ex_cnt = None if group is None else exclusive_prefix(seg_cnt, group)
 
         p_dim = split_dim[ps]
         p_start = seg_start[ps]
@@ -193,7 +225,7 @@ def sorted_build(
             # floor(sum_ids / count) per segment from one int64 prefix sum
             # of the active rows' ids (exact: sums stay below 2^60)
             ic = torch.cumsum(torch.where(active, pid, 0), dim=0)
-            mean_id = torch.div(at(ic, ends) - at(ic, seg_start),
+            mean_id = torch.div(psum(at(ic, ends) - at(ic, seg_start)),
                                 torch.clamp(g_cnt, min=1),
                                 rounding_mode="floor")
 
@@ -201,15 +233,17 @@ def sorted_build(
         # [N] prefix sum of the chosen column)
         value = pvec.gather(1, p_dim[:, None])[:, 0]
         vc = prefix_sum(torch.where(active, value, 0.0))
-        mid = (at(vc, ends) - at(vc, seg_start)) / cnt_f
+        mid = psum(at(vc, ends) - at(vc, seg_start)) / cnt_f
         p_mid = mid[ps]
 
         local_rank = pos - p_start
         if mean_id_ties:
             tie_high = pid > mean_id[ps]
         else:
-            # positional ties: lows get the first ceil(cnt/2) ranks
-            tie_high = 2 * local_rank >= p_gcnt + (p_gcnt & 1)
+            # positional ties: lows get the first ceil(cnt/2) ranks of
+            # the segment, counted over every shard
+            g_rank = local_rank if ex_cnt is None else local_rank + ex_cnt[ps]
+            tie_high = 2 * g_rank >= p_gcnt + (p_gcnt & 1)
         normal_high = (value > p_mid) | ((value == p_mid) & tie_high)
 
         is_low_n = active & ~normal_high
@@ -218,7 +252,8 @@ def sorted_build(
         lo_cnt = at(cl, ends) - cl_lo
         # zero-progress guard (fp edge: every row on one side) -> forced
         # tie partition, like a degenerate segment
-        stuck = is_int & ((lo_cnt == 0) | (lo_cnt == g_cnt))
+        g_lo = psum(lo_cnt)
+        stuck = is_int & ((g_lo == 0) | (g_lo == g_cnt))
         degen_split = degenerate | stuck
         if mean_id_ties:
             # tie-partitioned segments split purely by id: recount lows
@@ -226,7 +261,13 @@ def sorted_build(
             cli_lo = at(cli, seg_start)
             lo_cnt = torch.where(degen_split, at(cli, ends) - cli_lo, lo_cnt)
         else:
-            lo_cnt = torch.where(degen_split, (g_cnt + 1) // 2, lo_cnt)
+            # a rank split moves no rows: this shard's lows are its part
+            # of the segment's first ceil(cnt/2) global ranks
+            half = (g_cnt + 1) // 2
+            if ex_cnt is not None:
+                half = torch.minimum(torch.clamp(half - ex_cnt, min=0),
+                                     seg_cnt)
+            lo_cnt = torch.where(degen_split, half, lo_cnt)
 
         # --- child numbering and boundaries
         ii = is_int.to(torch.int64)

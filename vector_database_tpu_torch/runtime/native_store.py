@@ -213,12 +213,15 @@ def stream_rows_to_device(row_source, n, d, *, chunk_rows: int = 500_000,
     preallocated result, so the host copy of chunk ``i+1`` overlaps the
     transfer of chunk ``i``; a buffer is refilled only after its last
     transfer's event. The caller's stream waits for the side stream before
-    the result is returned. ``sharding`` (placing the result across a
-    mesh) waits for the port of the multi-device paths and raises."""
+    the result is returned. ``sharding`` (JAX's placement of the result
+    across a mesh) raises: on a ``torch.distributed`` mesh each rank reads
+    its own rows with ``parallel.make_sharded_rows(store, mesh)``."""
     if sharding is not None:
         raise NotImplementedError(
-            "stream_rows_to_device: sharding= needs the multi-device paths, "
-            "which the torch port does not have yet")
+            "stream_rows_to_device: sharding= has no counterpart; on a mesh "
+            "each rank reads its own rows with "
+            "vector_database_tpu_torch.parallel.make_sharded_rows(store, "
+            "mesh)")
     device = resolve_device(device)
     out = torch.empty((n, d), dtype=torch.float32, device=device)
     spans = [(s, min(chunk_rows, n - s)) for s in range(0, n, chunk_rows)]

@@ -147,6 +147,17 @@ def search(
     if traversal not in ("dfs", "bfs"):
         raise ValueError("traversal must be 'dfs' or 'bfs'")
     queries = atleast_2d(as_f32(queries, index.device))
+    return _search(index, queries, radius, max_leaves=max_leaves,
+                   auto_grow=auto_grow)
+
+
+def _search(index: BSPIndex, queries, radius, *, max_leaves, auto_grow,
+            budget_q=None, any_overflow=None) -> SearchResult:
+    """``search`` on f32 ``queries`` on the index's device. ``budget_q``:
+    the batch the rerank budget is sized for (default: ``queries``'s).
+    ``any_overflow(ov) -> bool`` decides an auto-grow retry (default:
+    ``ov.any()``); ranks that search shards of one batch pass an
+    all-reduce, so that all of them retry together and keep one width."""
     radius = torch.tensor(radius, dtype=torch.float32, device=index.device)
     num_leaf_nodes = index.num_leaves
     if max_leaves is None:
@@ -154,18 +165,21 @@ def search(
     # the rerank gathers [Q, max_leaves*leaf_cap, D] floats: cap that
     # buffer at ~2 GB so a non-selective query reports an overflow
     # instead of running out of memory
-    budget_rows = (2 << 30) // (4 * queries.shape[0] * index.d)
+    budget_q = queries.shape[0] if budget_q is None else budget_q
+    budget_rows = (2 << 30) // (4 * budget_q * index.d)
     grow_cap = max(
         min(num_leaf_nodes, budget_rows // max(index.leaf_cap, 1)), 1
     )
     max_leaves = min(max_leaves, grow_cap)
+    if any_overflow is None:
+        any_overflow = lambda ov: bool(ov.any())  # noqa: E731
 
     while True:
         leaves, _, ov = _traverse_bfs(
             index.dim, index.mid, index.low, index.high, queries, radius,
             max_leaves=max_leaves, depth=index.depth,
         )
-        if auto_grow and bool(ov.any()) and max_leaves < grow_cap:
+        if auto_grow and max_leaves < grow_cap and any_overflow(ov):
             max_leaves = min(max_leaves * 2, grow_cap)
             continue
         break
@@ -307,6 +321,12 @@ def knn(
             index.vectors, queries[: min(64, queries.shape[0])], k, 0.95
         )
     res = search(index, queries, radius, max_leaves=max_leaves)
+    return _knn_select(index, res, k, row_filter)
+
+
+def _knn_select(index: BSPIndex, res: SearchResult, k: int, row_filter):
+    """``knn``'s top-k over a radius search's matches, with its overflow
+    warning."""
     sq = res.sq_dists
     if row_filter is not None:
         rf = torch.as_tensor(np.asarray(row_filter, bool)
@@ -330,6 +350,6 @@ def knn(
             "truncated (results may miss neighbors). Use the packed scan "
             "for non-selective high-dimensional queries.",
             RuntimeWarning,
-            stacklevel=2,
+            stacklevel=3,
         )
     return rows, d2

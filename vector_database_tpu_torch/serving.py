@@ -1,5 +1,6 @@
 """Fixed-batch serving front end over a packed database (port of
-``vector_database_tpu/serving.py``, single-device packs).
+``vector_database_tpu/serving.py``): a single-device ``PackedDB`` or a
+mesh-sharded ``ShardedPackedDB``, dispatched on the pack's type as in JAX.
 
 Every caller batch is cut into ``batch``-sized waves and the last wave
 padded, so every scan runs at one shape: the kernel's grid and the
@@ -19,6 +20,7 @@ from vector_database_tpu_torch.ops.packed_knn import (
     pallas_scan_knn_packed,
     pallas_scan_knn_packed_rt,
 )
+from vector_database_tpu_torch.parallel.scan import sharded_scan_knn
 
 
 class PackedServer:
@@ -33,7 +35,10 @@ class PackedServer:
     (``min_probe_batch=batch`` prunes only full waves; larger values are
     rejected because no wave could satisfy them). ``probes_max`` serves
     the pruned waves through the runtime-probes path, and ``set_probes``
-    retunes the operating point within ``[1, probes_max]``.
+    retunes the operating point within ``[1, probes_max]``. Over a
+    ``ShardedPackedDB`` every wave is the sharded scan (``probes`` per
+    rank), and every rank of its mesh calls ``query`` with the same
+    batches.
 
     >>> pack = pack_database(vectors, device="cuda")
     >>> srv = PackedServer(pack, k=10, batch=1024)
@@ -83,6 +88,8 @@ class PackedServer:
         self._probes = probes
         self._probes_max = probes_max
         self._min_probe_batch = min_probe_batch
+        # dispatch on the pack flavour (single-device vs mesh-sharded)
+        self._sharded = not isinstance(pack, PackedDB)
 
     @classmethod
     def from_vectors(cls, vectors, *, k: int = 10, batch: int = 1024,
@@ -123,6 +130,13 @@ class PackedServer:
     def _serve(self, queries, pruned: bool):
         kw = dict(k=self._k, q_tile=self._q_tile,
                   oversample=self._oversample)
+        if self._sharded:
+            if pruned and self._probes_max is not None:
+                kw["probes_max"] = self._probes_max
+            return sharded_scan_knn(
+                self._pack, queries, probes=self._probes if pruned else None,
+                **kw,
+            )
         if pruned and self._probes_max is not None:
             return pallas_scan_knn_packed_rt(
                 self._pack, queries, self._probes,
