@@ -96,12 +96,26 @@ Phases (each raises on failure; nothing is caught):
    the sharded serve; at 1M x 8, ``search_global``/``knn_global``,
    ``build_forest`` + ``forest_knn``, ``search_sharded``/``knn_sharded``
    and ``build_index_multislice(n_slices=1)`` with ``knn_multislice``/
-   ``search_multislice`` against the oracles. The process group is
-   destroyed at the end.
+   ``search_multislice`` against the oracles.
+13. the host-loop build (``build_index`` over ``ops/level.py``): the
+   10M x 96 rows of phase 3 made again, built twice (the tables must be
+   equal field by field), timed beside phase 3's fused build, with the
+   depth, the leaves and each level's time (``BuildStats``), and the
+   per-level host copy timed alone at the widest level; its leaf-major
+   matrix packed (4096 buckets) and served by ``PackedServer`` full scan
+   at q=4096 (recall@10 >= 0.98; ``bucket_scan``'s launch count must rise);
+   at world size 1 over NCCL ``build_index(mesh=make_mesh())`` and
+   ``build_index(mesh=make_mesh_2d(1, 1), dim_axis="model")`` over the
+   same N x D rows equal the single-device tree bit for bit;
+   ``one_hot_crafted(1536)`` gives the fused build's tree; the forward of
+   the ``__graft_entry__.py`` twin (``entry.py``) runs on the card and equals
+   ``exact_knn`` on every query whose ball holds k rows. The process
+   group of phases 12-13 is destroyed at the end.
 
 It prints the card's name and power limit, one JSON line each of the
-main path's, phase 7's, phase 9's, phases 10-11's and phase 12's
-(``{"mesh": ...}``) results, one JSON
+main path's, phase 7's, phase 9's, phases 10-11's, phase 12's
+(``{"mesh": ...}``) and phase 13's (``{"host_loop": ...}``) results, one
+JSON
 line of kernel results (each kernel with its time, its
 plain version's, its bound from this run's shapes and the card's
 published peaks, the library yardstick, TFLOP/s and share of the bound),
@@ -1304,7 +1318,173 @@ def _mesh_phase(dev, single_qps):
           f"forest_knn, knn_sharded, knn_multislice == exact_knn on {full} "
           f"full rows")
     del v8, q8, t8, fo, tree, ms1, ball, res
+    return out
+
+
+def _hostloop_phase(dev, fused_build_s):
+    """Phase 13: the host-loop build at N x D (twice, one tree; per-level
+    times from ``BuildStats``), its pack served by ``PackedServer`` with
+    the ``bucket_scan`` launches counted, the world-size-1 mesh forms
+    (rows, and rows with ``dim_axis``) against the single-device tree,
+    the one-hot reference shape against the fused build, and the entry
+    twin's forward against the oracle. Destroys the process group of
+    phases 12-13 at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from vector_database_tpu_torch import (
+        PackedServer,
+        build_index,
+        build_index_fused,
+        exact_ball,
+        exact_knn,
+        pack_database,
+    )
+    from vector_database_tpu_torch import entry as twin
+    from vector_database_tpu_torch import parallel as par
+    from vector_database_tpu_torch.builder import _level_to_host
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.utils import datasets
+    from vector_database_tpu_torch.utils.profiling import BuildStats
+
+    t_phase = time.perf_counter()
+    out = dict(fused_build_s_phase3=fused_build_s)
+    train, test, _, _ = _clustered(dev, N, SEED)
+    torch.cuda.synchronize()
+
+    # the main path of this phase: build, pack, serve; the launch count
+    # covers it alone
+    bs.bucket_scan.LAUNCHES = 0
+    trees, stats = [], []
+    for key in ("build_s", "build_again_s"):
+        stats.append(BuildStats())
+        t0 = time.perf_counter()
+        trees.append(build_index(train, leaf_size=LEAF, progress=stats[-1]))
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+    index = trees[0]
+    if not (_same_tree(*trees) and _same_bits(trees[0].vectors,
+                                              trees[1].vectors)):
+        raise AssertionError("two host-loop builds of one input gave two "
+                             "trees")
+    del trees
+    levels = stats[1].levels
+    out.update(depth=index.depth, leaves=index.num_leaves,
+               leaf_cap=index.leaf_cap, build_vps=N / out["build_again_s"],
+               level_s=[s.seconds for s in levels],
+               level_live=[s.live_ranges for s in levels])
+    print(f"[host_loop] build_index {N}x{D} leaf {LEAF}: "
+          f"{out['build_s']:.3f} s, again {out['build_again_s']:.3f} s "
+          f"({out['build_vps']:.1f} vectors/s; phase 3's fused build "
+          f"{fused_build_s:.3f} s); the two indexes equal field by field; "
+          f"depth {index.depth}, {index.num_leaves} leaves, leaf cap "
+          f"{index.leaf_cap}")
+    print("[host_loop] per level (BuildStats, the second build):\n"
+          + stats[1].report())
+
+    t0 = time.perf_counter()
+    pack = pack_database(index.vectors, buckets=BUCKETS)
+    torch.cuda.synchronize()
+    out["pack_s"] = time.perf_counter() - t0
+    truth = exact_knn(index.vectors, test[:TRUTH_Q], k=K)[0]
+    srv = PackedServer(pack, k=K, batch=Q)
+    srv.warmup()
+    ms = _ms(lambda: srv.query(test), REPS)
+    rec = _recall(srv.query(test)[0][:TRUTH_Q], truth)
+    torch.cuda.synchronize()
+    out.update(full_ms=ms, full_qps=Q / ms * 1e3, full_recall=rec,
+               launches=bs.bucket_scan.LAUNCHES)
+    print(f"[host_loop] pack {out['pack_s']:.3f} s; PackedServer full scan "
+          f"q={Q}: {ms:.3f} ms, {out['full_qps']:.1f} QPS, recall@{K} "
+          f"{rec:.4f}; bucket_scan launches {out['launches']}")
+    if out["launches"] < 1:
+        raise AssertionError("the host-loop tree's serve never launched "
+                             "bucket_scan")
+    if rec < 0.98:
+        raise AssertionError(f"host-loop full-scan recall@{K} {rec} < 0.98")
+    del srv, pack, truth
+
+    # the level's one device-to-host copy, alone, at the widest level
+    s_max = max(s.live_ranges for s in levels)
+    fake = dict(cnt=torch.ones(s_max, dtype=torch.int32, device=dev),
+                split_dim=torch.ones(s_max, dtype=torch.int32, device=dev),
+                mid=torch.ones(s_max, device=dev),
+                dual=torch.zeros(s_max, dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    out["host_copy_ms"] = _host_ms(lambda: _level_to_host(fake, s_max), REPS)
+    out["host_copy_segments"] = s_max
+    print(f"[host_loop] the per-level host copy alone at {s_max} segments "
+          f"(the widest level): {out['host_copy_ms']:.3f} ms")
+    del fake
+
+    # the mesh forms at world size 1 over NCCL, at the full N x D
+    mesh = par.make_mesh()
+    mesh2 = par.make_mesh_2d(1, 1)
+    for key, kw in (("mesh_build_s", dict(mesh=mesh)),
+                    ("mesh_dim_axis_build_s", dict(mesh=mesh2,
+                                                   dim_axis="model"))):
+        t0 = time.perf_counter()
+        got = build_index(train, leaf_size=LEAF, **kw)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        if not (_same_tree(got, index) and got.leaf_cap == index.leaf_cap
+                and _same_bits(got.vectors, index.vectors)):
+            raise AssertionError(f"{key[:-2]} at world size 1 != the "
+                                 f"single-device host-loop tree")
+        del got
+    print(f"[host_loop] world size 1 over {dist.get_backend()} at "
+          f"{N}x{D}: build_index(mesh=make_mesh()) "
+          f"{out['mesh_build_s']:.3f} s, build_index(mesh=make_mesh_2d(1, "
+          f"1), dim_axis='model') {out['mesh_dim_axis_build_s']:.3f} s; "
+          f"both equal the single-device tree bit for bit")
+    del train, test, index
+    torch.cuda.empty_cache()
+
+    # the reference's adversarial shape: the fused build's tree
+    # (tests/test_fused.py: equal structure, planes within rtol 1e-4 and
+    # atol 1e-6, each leaf's rows as a set)
+    oh = torch.as_tensor(datasets.one_hot_crafted(1536), device=dev)
+    a, b = build_index(oh), build_index_fused(oh)
+    for f in ("dim", "low", "high", "leaf_count"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"one-hot: host-loop {f} != fused")
+    if not torch.allclose(a.mid, b.mid, rtol=1e-4, atol=1e-6) or \
+            (a.depth, a.leaf_cap, a.num_leaves) != \
+            (b.depth, b.leaf_cap, b.num_leaves):
+        raise AssertionError("one-hot: host-loop tree != fused tree")
+    for m in torch.nonzero(a.dim == -1)[:, 0].tolist():
+        c = int(a.leaf_count[m])
+        ra = a.orig_row[int(a.leaf_start[m]):][:c].tolist()
+        rb = b.orig_row[int(b.leaf_start[m]):][:c].tolist()
+        if set(ra) != set(rb):
+            raise AssertionError(f"one-hot: leaf {m} holds other rows")
+    print(f"[host_loop] one_hot_crafted(1536): build_index == "
+          f"build_index_fused (depth {a.depth}, {a.num_leaves} leaves)")
+    del oh, a, b
+
+    # the ``__graft_entry__.py`` twin on the card
+    forward, (queries,) = twin.entry()
+    frows, _ = forward(queries)
+    out["entry_ms"] = _host_ms(lambda: forward(queries), REPS)
+    v = torch.as_tensor(datasets.random_uniform(4096, 32, seed=0),
+                        device=dev)
+    full = exact_ball(v, queries, twin.RADIUS).sum(dim=1) >= twin.K
+    erows = exact_knn(v, queries, k=twin.K)[0]
+    for i in torch.nonzero(full)[:, 0].tolist():
+        if set(frows[i].tolist()) != set(erows[i].tolist()):
+            raise AssertionError(f"entry forward != exact_knn, query {i}")
+    out["entry_exact_queries"] = int(full.sum())
+    if not (frows.is_cuda and out["entry_exact_queries"] > 0):
+        raise AssertionError("entry forward off the card, or no query "
+                             "whose ball holds k rows")
+    print(f"[host_loop] entry(): forward {tuple(frows.shape)} on "
+          f"{frows.device}, {out['entry_ms']:.3f} ms; == exact_knn on the "
+          f"{out['entry_exact_queries']} queries whose ball holds "
+          f"{twin.K} rows")
+    del forward, queries, frows, v, full, erows, mesh, mesh2
     dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[host_loop] phase 13 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -1743,6 +1923,10 @@ def main():
 
     # ---- 12. the mesh at world size 1 over NCCL -------------------------
     mesh = _mesh_phase(dev, results["full"]["qps"])
+    torch.cuda.empty_cache()
+
+    # ---- 13. the host-loop build ----------------------------------------
+    hl = _hostloop_phase(dev, build_s)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -1755,6 +1939,7 @@ def main():
     print(json.dumps({"out_of_core": dict(ooc, n=OOC_N, chunk=OOC_CHUNK,
                                           d=D, q=Q, models=models)}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"host_loop": hl}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
@@ -1792,6 +1977,7 @@ def main():
         "chunk_d96_pruned256_library_ms":
             ooc["kernel"]["pruned256_library_ms"],
         "sharded_launches": mesh["launches"],
+        "hostloop_launches": hl["launches"],
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",

@@ -20,7 +20,11 @@ Two builds of one input give the same tree. A ``ChunkedIndex`` of three
 chunks serves pinned, pipelined or not, and streamed, with equal results.
 On ``make_mesh()``, a world of one rank over NCCL, the sharded build and
 the sharded scan of 1M x 96 float rows equal the single-device ones bit
-for bit (every collective of one rank returns its input's bits).
+for bit (every collective of one rank returns its input's bits). The
+host-loop ``build_index`` gives one tree per input at 1M x 96, the same
+tree over ``make_mesh()`` and over ``make_mesh_2d(1, 1)`` with
+``dim_axis``, and ``argmax``/``argmin`` on the card keep the first index
+of a tie, as the split-dimension choice needs.
 """
 
 import numpy as np
@@ -602,3 +606,79 @@ def test_sharded_scan_equals_single_device_scan_on_card(nccl_mesh, probes):
     assert torch.equal(got_r, torch.where(r >= 0, ids[r.clamp(min=0)].long(),
                                           -1))
     assert torch.equal(got_d.view(torch.int32), d.view(torch.int32))
+
+
+def _same_index(a, b):
+    assert (a.depth, a.num_leaves, a.leaf_cap) == \
+        (b.depth, b.num_leaves, b.leaf_cap)
+    for field in ("dim", "mid", "low", "high", "leaf_start", "leaf_count",
+                  "orig_row", "vectors"):
+        ta, tb = getattr(a, field), getattr(b, field)
+        assert torch.equal(ta.view(torch.int32), tb.view(torch.int32)), field
+
+
+@pytest.mark.cuda
+def test_argmax_argmin_keep_the_first_tie_on_card(cuda_device):
+    """Rows of exact ties (the variances of permuted columns) at the
+    widths the build meets: the first tied index, on the card as on the
+    CPU."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    for s, d in ((1, 8), (4096, 96), (65536, 96), (3, 1000)):
+        m2 = torch.randint(0, 3, (s, d), generator=g, device=cuda_device)
+        m2 = m2.float()
+        col = torch.arange(d, device=cuda_device)
+        for fn, best in ((torch.argmax, m2.amax(dim=1, keepdim=True)),
+                         (torch.argmin, m2.amin(dim=1, keepdim=True))):
+            first = torch.where(m2 == best, col, d).amin(dim=1)
+            got = fn(m2, dim=1)
+            assert torch.equal(got, first)
+            assert torch.equal(got.cpu(), fn(m2.cpu(), dim=1))
+
+
+@pytest.mark.cuda
+def test_host_loop_build_gives_one_tree_per_input_on_card(cuda_device):
+    """Two host-loop builds of one seeded 1M x 96 input: the segment
+    totals are float64 prefix differences in an order fixed by the shapes,
+    so the indexes are equal bit for bit."""
+    from vector_database_tpu_torch import build_index
+
+    x, _ = _clustered_96(cuda_device, 1_000_000, 22)
+    a = build_index(x, leaf_size=16)
+    b = build_index(x, leaf_size=16)
+    _same_index(a, b)
+
+
+@pytest.mark.cuda
+def test_host_loop_level_on_card_equals_cpu(cuda_device):
+    """One level on integer rows: every output of the card's level equals
+    the CPU's bit for bit."""
+    from vector_database_tpu_torch.ops.level import level_math
+
+    g = torch.Generator().manual_seed(23)
+    v = torch.randint(-6, 7, (50_000, 96), generator=g).float()
+    seg = torch.randint(-1, 300, (50_000,), generator=g).int()
+    leaf = torch.where(seg < 0, 3, -1).int()
+    ids = torch.arange(50_000)
+    for use_max in (True, False):
+        cpu = level_math(v, ids, seg, leaf, use_max, 9, num_segments=512,
+                         leaf_size=4)
+        card = level_math(v.to(cuda_device), ids.to(cuda_device),
+                          seg.to(cuda_device), leaf.to(cuda_device), use_max,
+                          9, num_segments=512, leaf_size=4)
+        for k in cpu:
+            assert torch.equal(card[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_host_loop_build_on_nccl_mesh_equals_single_device(nccl_mesh):
+    """World size 1 over NCCL: ``build_index(mesh=make_mesh())`` and
+    ``build_index(mesh=make_mesh_2d(1, 1), dim_axis="model")`` equal the
+    single-device host-loop build of 1M x 96 float rows bit for bit."""
+    from vector_database_tpu_torch import build_index
+    from vector_database_tpu_torch.parallel import make_mesh_2d
+
+    x, _ = _clustered_96(torch.device("cuda"), 1_000_000, 24)
+    one = build_index(x, leaf_size=16)
+    _same_index(build_index(x, leaf_size=16, mesh=nccl_mesh), one)
+    _same_index(build_index(x, leaf_size=16, mesh=make_mesh_2d(1, 1),
+                            dim_axis="model"), one)

@@ -40,6 +40,9 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.parallel.query",
     "vector_database_tpu_torch.parallel.scan",
     "vector_database_tpu_torch.parallel.multislice",
+    "vector_database_tpu_torch.ops.level",
+    "vector_database_tpu_torch.builder",
+    "vector_database_tpu_torch.entry",
 ])
 def test_import_leaves_jax_out(module):
     code = (

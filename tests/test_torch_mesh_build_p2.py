@@ -1,5 +1,6 @@
-"""The port's sharded global-tree build against the JAX package's at 2
-Gloo ranks (the tests are in ``torch_mesh_build_tests.py``)."""
+"""The port's sharded global-tree build, and its host-loop build over a
+mesh, against the JAX package's at 2 Gloo ranks (the tests are in
+``torch_mesh_build_tests.py``)."""
 
 import pytest
 

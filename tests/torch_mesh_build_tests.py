@@ -1,6 +1,7 @@
-"""The port's sharded global-tree build against the JAX package's: the
-tests of ``test_torch_mesh_build_p2.py`` and ``_p4.py``, which set the
-rank count (the ``world`` fixture) and import them.
+"""The port's sharded global-tree build, and its host-loop build over a
+mesh, against the JAX package's: the tests of ``test_torch_mesh_build_p2.py``
+and ``_p4.py``, which set the rank count (the ``world`` fixture) and
+import them.
 
 The port side runs in spawned Gloo ranks (``torch_mesh_worker.py``, one
 spawn per rank count, every case in it); the JAX side runs here on
@@ -9,7 +10,11 @@ every f32 segment sum is exact in any order, so the node tables are
 bitwise equal to JAX's and to the single-device fused build, and each
 rank's leaf runs, rows and ``orig_row`` are JAX's shard ``p``. Searches
 return JAX's rows with distances within 1e-5; ``knn_global`` ids may
-differ only among rows that tie the k-th distance.
+differ only among rows that tie the k-th distance. The host-loop
+``build_index(mesh=)`` returns the whole index on every rank: JAX's
+``build_index(mesh=)`` index, field by field, and the single-device one
+(rows over a 1-D mesh, and with ``dim_axis="model"`` over a 1 x 2 mesh at
+two ranks, 2 x 2 at four).
 """
 
 import functools
@@ -19,12 +24,13 @@ import pytest
 import torch
 
 import torch_mesh_worker as w
+from vector_database_tpu import build_index as jax_build_index
 from vector_database_tpu.parallel import build_index_sharded as jax_build
 from vector_database_tpu.parallel import knn_global as jax_knn
-from vector_database_tpu.parallel import make_mesh
+from vector_database_tpu.parallel import make_mesh, make_mesh_2d
 from vector_database_tpu.parallel import search_global as jax_search
 from vector_database_tpu.parallel import to_bsp as jax_to_bsp
-from vector_database_tpu_torch import build_index_fused
+from vector_database_tpu_torch import build_index, build_index_fused
 
 torch.set_num_threads(2)
 
@@ -179,3 +185,33 @@ def test_jax_built_tree_served_by_port(ranks):
     j = jax_side("positional_uneven", world)["knn"]
     for o in outs:
         w.assert_topk_equal(o["rows"], o["d2"], j["rows"], j["d2"])
+
+
+HOST_FIELDS = NODE + RUNS
+
+
+@pytest.mark.parametrize("name", w.HOST_CASES)
+def test_host_loop_build_equals_jax_mesh_and_single_device(ranks, name):
+    """Every rank's whole index is JAX's ``build_index(mesh=)`` index and
+    the port's single-device host-loop tree (equal to JAX's single-device
+    tree: ``test_torch_build_host.py``), bit for bit."""
+    world, outs = _case(ranks, name)
+    rows, kw, shape = w.host_spec(name, world)
+    mesh = make_mesh(world) if shape is None else make_mesh_2d(*shape)
+    jm = jax_build_index(rows, mesh=mesh, **kw)
+    kw.pop("dim_axis", None)
+    one = build_index(rows, device="cpu", **kw)
+    for want in (jm, one):
+        for p, o in enumerate(outs):
+            for f in HOST_FIELDS:
+                np.testing.assert_array_equal(
+                    o["tree"][f], np.asarray(getattr(want, f)),
+                    err_msg=f"rank {p} {f}")
+            assert tuple(o["tree"][f] for f in META) == \
+                tuple(getattr(want, f) for f in META)
+
+
+def test_host_loop_dim_axis_uneven_raises_on_every_rank(ranks):
+    world, outs = _case(ranks, "hl_dim_axis_uneven")
+    for o in outs:
+        assert o["raised"] and "dim_axis" in o["raised"]

@@ -145,6 +145,61 @@ def from_jax_arrays(mesh, world, inputs):
     return dict(rows=np_of(r), d2=np_of(d2))
 
 
+# ---- the host-loop build over a mesh --------------------------------------
+
+def host_spec(name, world):
+    """``(rows, build_index kwargs, 2-D mesh shape or None)`` of a
+    host-loop case; no row count is a multiple of the rank count."""
+    if name == "hl_leaf1":
+        return ints(41, 29, 4), dict(leaf_size=1), None
+    if name == "hl_leaf8_cap":
+        return ints(42, 301, 5), dict(leaf_size=8, max_levels=3), None
+    if name == "hl_duplicates":
+        return np.repeat(ints(43, 5, 4, -2, 2), 6, axis=0)[:29], \
+            dict(leaf_size=2), None
+    if name == "hl_n_lt_p":
+        return ints(44, world - 1, 3), dict(), None
+    if name == "hl_dim_axis":  # 1 x 2 at two ranks, 2 x 2 at four
+        return ints(45, 97, 4), dict(leaf_size=8, dim_axis="model"), \
+            (world // 2, 2)
+    raise KeyError(name)
+
+
+HOST_CASES = ("hl_leaf1", "hl_leaf8_cap", "hl_duplicates", "hl_n_lt_p",
+              "hl_dim_axis")
+
+
+def _host_case(name):
+    def run(mesh, world, inputs):
+        from vector_database_tpu_torch import build_index
+        from vector_database_tpu_torch import parallel as par
+
+        rows, kw, shape = host_spec(name, world)
+        if shape is not None:
+            mesh = par.make_mesh_2d(*shape, device_type="cpu")
+        return {"tree": _tree_out(build_index(rows, mesh=mesh, **kw))}
+    run.__name__ = name
+    return run
+
+
+for _name in HOST_CASES:
+    case("build")(_host_case(_name))
+
+
+@case("build")
+def hl_dim_axis_uneven(mesh, world, inputs):
+    """7 dims over two column shards: every rank raises."""
+    from vector_database_tpu_torch import build_index
+    from vector_database_tpu_torch import parallel as par
+
+    mesh2 = par.make_mesh_2d(world // 2, 2, device_type="cpu")
+    try:
+        build_index(ints(46, 50, 7), mesh=mesh2, dim_axis="model")
+    except ValueError as e:
+        return dict(raised=str(e))
+    return dict(raised=None)
+
+
 # ---- the sharded scan -----------------------------------------------------
 
 # JAX's scan kernel loses the block id of a bucket whose best score is

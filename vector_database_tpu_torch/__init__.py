@@ -9,7 +9,9 @@ The ported slices are the main path and the int8 capacity path:
 
 - ``build_index_fused``: the level-synchronous variance-split BSP build,
   which yields the leaf-major matrix (``builder.py``,
-  ``ops/sorted_build.py``);
+  ``ops/sorted_build.py``), and ``build_index``, the host-loop build
+  (``ops/level.py``) with its streamed node blocks and its mesh forms
+  (rows sharded, and the tensor-parallel ``dim_axis``);
 - ``pack_database`` (bf16, int8 and int8f blocks) and the bucketed scan,
   full or pruned by block probes, with an exact f32 rerank
   (``ops/packed_knn.py`` over the CUDA kernels in ``ops/bucket_scan.py``
@@ -40,7 +42,7 @@ package puts it on its default device (``utils/device.py``). On CPU
 tensors each kernel's plain torch version runs instead.
 """
 
-from vector_database_tpu_torch.builder import build_index_fused
+from vector_database_tpu_torch.builder import build_index, build_index_fused
 from vector_database_tpu_torch.document_store import DocumentStore
 from vector_database_tpu_torch.dynamic import DynamicIndex
 from vector_database_tpu_torch.models.boolmatrix import BoolMatrixIndex
@@ -85,6 +87,7 @@ __all__ = [
     "PackedDB",
     "PackedServer",
     "SearchResult",
+    "build_index",
     "build_index_fused",
     "calibrate_probes",
     "calibrate_radius",
