@@ -111,13 +111,29 @@ Phases (each raises on failure; nothing is caught):
    the ``__graft_entry__.py`` twin (``entry.py``) runs on the card and equals
    ``exact_knn`` on every query whose ball holds k rows. The process
    group of phases 12-13 is destroyed at the end.
+14. the measurement harnesses of ``vector_database_tpu_torch/benchmarks/``,
+   each through its ``main(argv)`` in this process at a reduced size
+   (HARNESS_N = 1M rows of 96): ``recall_qps`` (full, pruned 64/128, the
+   buckets x oversample sweep, the world-size-1 mesh, the tree walk;
+   packed recall@10 >= 0.98, the sharded recalls equal to the
+   single-device ones), ``latency`` (full recall@10 >= 0.98 at every
+   batch, p99 >= p50 > 0), ``probe_epilogue`` full and pruned,
+   ``probe_select``, ``probe_host_rerank`` (``inplace`` and the
+   production rerank bitwise ``diff``), ``probe_pin_pipeline`` at 2M in
+   500k chunks (pipelined == sequential bitwise, asserted by the harness),
+   ``bigscale`` at 3M in 1M chunks under ``build/`` (sampled recall >=
+   0.98, the store removed), ``probe_churn`` (both packs survive),
+   ``crossover`` at 200k over d 2/8/96, ``probe_fullscan``,
+   ``probe_kernel``, ``probe_block`` (two configurations each),
+   ``probe_build``, ``probe_ops`` and ``main_test``; every scan kernel's
+   launch count must rise over the phase.
 
 It prints the card's name and power limit, one JSON line each of the
 main path's, phase 7's, phase 9's, phases 10-11's, phase 12's
-(``{"mesh": ...}``) and phase 13's (``{"host_loop": ...}``) results, one
-JSON
-line of kernel results (each kernel with its time, its
-plain version's, its bound from this run's shapes and the card's
+(``{"mesh": ...}``), phase 13's (``{"host_loop": ...}``) and phase 14's
+(``{"harness": ...}``) results, one JSON line of kernel results (each
+kernel with its time, its plain version's, its bound from this run's
+shapes and the card's
 published peaks, the library yardstick, TFLOP/s and share of the bound),
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits non-zero and prints no result.
@@ -141,6 +157,7 @@ STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
 OOC_N, OOC_CHUNK, OOC_PROBES = 30_000_000, 10_000_000, 256
 SMALL_N, SMALL_D, SMALL_CHUNK, SMALL_Q = 1_000_000, 8, 250_000, 64
 MODEL_N, MODEL_D, MODEL_Q, BOOL_P, BOOL_Q = 100_000, 8, 64, 64, 4096
+HARNESS_N = 1_000_000
 REPS = 3
 DEVICE = "cuda"
 # NVIDIA H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM
@@ -1488,6 +1505,176 @@ def _hostloop_phase(dev, fused_build_s):
     return out
 
 
+def _run_harness(name, argv):
+    """``main(argv)`` of ``vector_database_tpu_torch.benchmarks.<name>``,
+    in this process: ``(JSON lines, return value, seconds)``. Its output
+    is kept, and printed if it raises (the error goes on up)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(
+        f"vector_database_tpu_torch.benchmarks.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = mod.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(f"[harness] {name} {' '.join(argv)} failed; its output:\n"
+              + buf.getvalue())
+        raise
+    secs = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    print(f"[harness] {name} {' '.join(argv)}: {secs:.2f} s, "
+          f"{len(lines)} JSON lines")
+    return lines, ret, secs
+
+
+def _harness_phase(dev):
+    """Phase 14: each measurement harness of
+    ``vector_database_tpu_torch/benchmarks/`` through its ``main(argv)``
+    on the card at a reduced size, its promises asserted; the scan
+    kernels' launches counted over the phase."""
+    import torch
+
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
+
+    t_phase = time.perf_counter()
+    n, chunk = str(HARNESS_N), str(HARNESS_N // 2)
+    tmp = os.path.join("build", f"chip_smoke_harness_{os.getpid()}")
+    out, secs = {}, {}
+    bs.bucket_scan.LAUNCHES = bs.bucket_scan.LAUNCHES_INT8F = 0
+    bi.bucket_scan_i8.LAUNCHES = 0
+
+    def run(name, *argv):
+        lines, ret, t = _run_harness(name, list(argv))
+        secs[name] = secs.get(name, 0.0) + t
+        torch.cuda.empty_cache()
+        return lines, ret
+
+    # recall/QPS at 1M: full, pruned, the buckets x oversample sweep, the
+    # world-size-1 mesh and the tree walk
+    lines, rep = run("recall_qps", "--n", n, "--reps", "3", "--probes",
+                     "64,128", "--sweep", "--sharded")
+    probes = {x["probes"]["probes"]: x["probes"]["recall"]
+              for x in lines if "probes" in x}
+    sharded = {x["sharded_probes"]["probes"]: x["sharded_probes"]["recall"]
+               for x in lines if "sharded_probes" in x}
+    sweep = [x["sweep"] for x in lines if "sweep" in x]
+    out["recall_qps"] = dict(
+        {k: rep[k] for k in ("build_s", "pallas_qps", "pallas_recall",
+                             "scan_bf16_qps", "scan_bf16_recall",
+                             "sharded_qps", "sharded_recall", "tree_qps",
+                             "tree_recall")},
+        probes_recall=probes, sweep_points=len(sweep))
+    if rep["pallas_recall"] < 0.98:
+        raise AssertionError(f"recall_qps: packed recall@10 "
+                             f"{rep['pallas_recall']} < 0.98")
+    if rep["sharded_recall"] != rep["pallas_recall"] or sharded != probes:
+        raise AssertionError("recall_qps: the sharded recall != the "
+                             "single-device recall")
+    if len(sweep) != 9:
+        raise AssertionError("recall_qps: the sweep has not 9 points")
+
+    # latency: p50/p99 at batches 32..4096, full and pruned (26 of the
+    # 123 blocks, as below)
+    lines, _ = run("latency", "--n", n, "--calls", "20", "--reps", "10",
+                   "--probes", "26")
+    out["latency"] = [{k: x[k] for k in ("batch", "mode", "lat_p50_ms",
+                                         "lat_p99_ms", "qps_chained",
+                                         "recall")} for x in lines[1:]]
+    for x in lines[1:]:
+        if not x["lat_p99_ms"] >= x["lat_p50_ms"] > 0:
+            raise AssertionError(f"latency: p99/p50 out of order: {x}")
+        if x["mode"] == "full" and x["recall"] < 0.98:
+            raise AssertionError(f"latency: full recall@10 < 0.98: {x}")
+    if [(x["batch"], x["mode"]) for x in lines[1:]] != [
+            (b, m) for b in (32, 256, 1024, 4096) for m in ("full", "pruned")]:
+        raise AssertionError("latency: a batch size or mode is missing")
+
+    # the per-batch cost split, full and pruned (at 1M x 96 there are 123
+    # blocks: 26 of them is the share that 256 is of 10M's 1221)
+    for tag, extra in (("full", ()), ("pruned", ("--probes", "26"))):
+        (line,), _ = run("probe_epilogue", "--n", n, "--q", "4096",
+                         "--reps", "10", *extra)
+        out[f"probe_epilogue_{tag}"] = {
+            k: v for k, v in line.items() if k.endswith("_us_per_q")}
+        if not all(v > 0 for v in out[f"probe_epilogue_{tag}"].values()):
+            raise AssertionError(f"probe_epilogue {tag}: a piece took 0")
+
+    _, table = run("probe_select", "--n", n)
+    out["probe_select_coverage_p64"] = {nm: cov[-1]
+                                        for nm, cov in table.items()}
+
+    lines, _ = run("probe_host_rerank", "--reps", "2")
+    rr = {next(iter(x)): x[next(iter(x))] for x in lines[1:]}
+    out["probe_host_rerank_ms"] = {
+        k: v if k == "gather_only_ms" else v["ms_per_chunk"]
+        for k, v in rr.items()}
+    for name in ("inplace", "host_rerank"):
+        if rr[name]["max_abs_err_vs_diff"] != 0.0:
+            raise AssertionError(f"probe_host_rerank: {name} != diff")
+
+    # pipelined == sequential, bitwise (asserted by the harness itself)
+    lines, _ = run("probe_pin_pipeline", "--n", str(2 * HARNESS_N),
+                   "--chunk", chunk, "--q", "2048", "--reps", "1")
+    out["probe_pin_pipeline"] = lines[-1]
+
+    store = os.path.join(tmp, "bigscale.vstore")
+    lines, _ = run("bigscale", "--n", str(3 * HARNESS_N), "--chunk", n,
+                   "--path", store, "--spill", os.path.join(tmp, "spill"),
+                   "--reps", "2")
+    out["bigscale"] = lines[-1]
+    if lines[-1]["recall_at_10_sampled"] < 0.98 or os.path.exists(store):
+        raise AssertionError(f"bigscale: {lines[-1]}, store left: "
+                             f"{os.path.exists(store)}")
+    os.rmdir(tmp)
+
+    (line,), _ = run("probe_churn", "--sizes", n, "--reps", "2",
+                     "--epochs", "2")
+    out["probe_churn"] = line
+    if not (line["pack_survived_adds"] and
+            line["base_pack_survived_removes"]):
+        raise AssertionError(f"probe_churn: a pack did not survive: {line}")
+
+    lines, _ = run("crossover", "--n", str(HARNESS_N // 5), "--dims",
+                   "2,8,96", "--reps", "3")
+    out["crossover"] = lines[1:]
+
+    for name, argv in (
+            ("probe_fullscan", ("--n", n, "--reps", "5", "--configs",
+                                "8192:4096:512:4,16384:4096:512:2")),
+            ("probe_kernel", (n, "[(8192, 256, 4096), "
+                                 "(16384, 512, 4096, 'int8f')]")),
+            ("probe_block", ("--n", n, "--blocks", "8192,16384")),
+            ("probe_build", (n,)),
+            ("probe_ops", (n, "96", str(HARNESS_N // 16)))):
+        lines, _ = run(name, *argv)
+        out[name] = lines[1:]
+        if any("error" in x for x in lines):
+            raise AssertionError(f"{name}: {lines}")
+
+    run("main_test")
+    torch.cuda.synchronize()
+    out["launches"] = dict(bucket_scan=bs.bucket_scan.LAUNCHES,
+                           bucket_scan_int8f=bs.bucket_scan.LAUNCHES_INT8F,
+                           bucket_scan_i8=bi.bucket_scan_i8.LAUNCHES)
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    if min(out["launches"].values()) < 1:
+        raise AssertionError(f"the harnesses left a scan kernel unlaunched: "
+                             f"{out['launches']}")
+    print(f"[harness] phase 14 took {out['phase_s']:.1f} s; scan launches "
+          f"{out['launches']}")
+    return out
+
+
 def main():
     import torch
 
@@ -1927,6 +2114,10 @@ def main():
 
     # ---- 13. the host-loop build ----------------------------------------
     hl = _hostloop_phase(dev, build_s)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the measurement harnesses ----------------------------------
+    harness = _harness_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -1940,6 +2131,7 @@ def main():
                                           d=D, q=Q, models=models)}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"host_loop": hl}))
+    print(json.dumps({"harness": harness}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
@@ -1978,6 +2170,7 @@ def main():
             ooc["kernel"]["pruned256_library_ms"],
         "sharded_launches": mesh["launches"],
         "hostloop_launches": hl["launches"],
+        "harness_launches": harness["launches"]["bucket_scan"],
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",
@@ -1993,6 +2186,7 @@ def main():
         "masked_max_abs_err": i8m_err,
         "m1000_launches": tail["launches"]["bucket_scan_int8f"],
         "m1000_max_abs_err": tail["int8f"]["max_abs_err"],
+        "harness_launches": harness["launches"]["bucket_scan_int8f"],
     }, {
         "name": "bucket_scan_i8",
         "route": "cuda",
@@ -2004,6 +2198,7 @@ def main():
         "plain_ms": i8_plain_ms,
         "m1000_launches": tail["launches"]["bucket_scan_i8"],
         "m1000_max_abs_err": tail["int8"]["max_abs_err"],
+        "harness_launches": harness["launches"]["bucket_scan_i8"],
     }, {
         "name": "probe_kernel_ab",
         "route": "cuda",

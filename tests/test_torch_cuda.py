@@ -24,7 +24,9 @@ for bit (every collective of one rank returns its input's bits). The
 host-loop ``build_index`` gives one tree per input at 1M x 96, the same
 tree over ``make_mesh()`` and over ``make_mesh_2d(1, 1)`` with
 ``dim_axis``, and ``argmax``/``argmin`` on the card keep the first index
-of a tie, as the split-dimension choice needs.
+of a tie, as the split-dimension choice needs. The ``recall_qps`` and
+``latency`` harnesses run at 100k x 96 on the card, with their recall
+floors, and a latency request ends with its rows on the host.
 """
 
 import numpy as np
@@ -682,3 +684,59 @@ def test_host_loop_build_on_nccl_mesh_equals_single_device(nccl_mesh):
     _same_index(build_index(x, leaf_size=16, mesh=nccl_mesh), one)
     _same_index(build_index(x, leaf_size=16, mesh=make_mesh_2d(1, 1),
                             dim_axis="model"), one)
+
+
+def _harness_lines(name, argv):
+    import contextlib
+    import importlib
+    import io
+    import json
+
+    mod = importlib.import_module(
+        f"vector_database_tpu_torch.benchmarks.{name}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mod.main(argv)
+    return [json.loads(x) for x in out.getvalue().splitlines()
+            if x.startswith("{")]
+
+
+@pytest.mark.cuda
+def test_recall_qps_harness_on_card(cuda_device):
+    """``recall_qps`` at 100k x 96 on the card: the packed scan's recall@10
+    against the exact oracle, and the kernel launched."""
+    tbs.bucket_scan.LAUNCHES = 0
+    lines = _harness_lines("recall_qps", ["--n", "100000", "--q", "1024",
+                                          "--reps", "2", "--probes", "8"])
+    report = lines[-1]
+    assert lines[0]["device"] == report["device"] != "cpu"
+    assert report["pallas_recall"] >= 0.98, report
+    # the streaming bf16 scan_knn shortlists 4 x 256 buckets a block of
+    # 65536 rows: 0.977 at 1M (chip_smoke.py phase 14)
+    assert report["scan_bf16_recall"] >= 0.95, report
+    assert report["pallas_qps"] > 0 and report["build_vps"] > 0
+    assert lines[1]["probes"]["probes"] == 8
+    assert tbs.bucket_scan.LAUNCHES > 0
+
+
+@pytest.mark.cuda
+def test_latency_harness_on_card(cuda_device, monkeypatch):
+    """``latency`` at 100k x 96: full-mode recall@10 >= 0.98 at every batch
+    size, p99 >= p50 > 0, and a request's window ends with the rows on
+    the host."""
+    from vector_database_tpu_torch import PackedServer, pack_database
+    from vector_database_tpu_torch.benchmarks import latency
+
+    monkeypatch.setenv("VDB_LAT_BATCHES", "32,1024")
+    lines = _harness_lines("latency", ["--n", "100000", "--calls", "5",
+                                       "--reps", "3", "--probes", "4"])
+    assert lines[0]["blocks"] == 13
+    full = [x for x in lines[1:] if x["mode"] == "full"]
+    assert [x["batch"] for x in full] == [32, 1024]
+    for x in lines[1:]:
+        assert x["lat_p99_ms"] >= x["lat_p50_ms"] > 0
+    assert all(x["recall"] >= 0.98 for x in full)
+    srv = PackedServer(pack_database(torch.rand((5000, 16), device="cuda")),
+                       k=5, batch=8)
+    rows, d2 = latency._request(srv, np.random.rand(8, 16).astype(np.float32))
+    assert rows.device.type == d2.device.type == "cpu"

@@ -43,6 +43,22 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.ops.level",
     "vector_database_tpu_torch.builder",
     "vector_database_tpu_torch.entry",
+    "vector_database_tpu_torch.benchmarks.recall_qps",
+    "vector_database_tpu_torch.benchmarks.make_hdf5",
+    "vector_database_tpu_torch.benchmarks.latency",
+    "vector_database_tpu_torch.benchmarks.probe_epilogue",
+    "vector_database_tpu_torch.benchmarks.probe_select",
+    "vector_database_tpu_torch.benchmarks.probe_host_rerank",
+    "vector_database_tpu_torch.benchmarks.probe_pin_pipeline",
+    "vector_database_tpu_torch.benchmarks.bigscale",
+    "vector_database_tpu_torch.benchmarks.probe_churn",
+    "vector_database_tpu_torch.benchmarks.crossover",
+    "vector_database_tpu_torch.benchmarks.probe_fullscan",
+    "vector_database_tpu_torch.benchmarks.probe_kernel",
+    "vector_database_tpu_torch.benchmarks.probe_block",
+    "vector_database_tpu_torch.benchmarks.probe_build",
+    "vector_database_tpu_torch.benchmarks.probe_ops",
+    "vector_database_tpu_torch.benchmarks.main_test",
 ])
 def test_import_leaves_jax_out(module):
     code = (
