@@ -9,7 +9,8 @@ Phases (each raises on failure; nothing is caught):
    (``bucket_scan_sm90.cu``, the scan of bf16 and int8f packs,
    ``bucket_scan_i8.cu``, the exact int8 scan, and ``probe_kernel_ab.cu``,
    the A/B probe, all on the Hopper skeleton of ``sm90.cuh``), one
-   ``nvcc`` each, all at once;
+   ``nvcc`` each, all at once, and say whether the build was cold or found
+   its libraries under ``build/`` already;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
@@ -125,8 +126,11 @@ Phases (each raises on failure; nothing is caught):
    0.98, the store removed), ``probe_churn`` (both packs survive),
    ``crossover`` at 200k over d 2/8/96, ``probe_fullscan``,
    ``probe_kernel``, ``probe_block`` (two configurations each),
-   ``probe_build``, ``probe_ops`` and ``main_test``; every scan kernel's
-   launch count must rise over the phase.
+   ``probe_build``, ``probe_ops``, ``probe_perm`` (the three inverses
+   equal), ``probe_meanid`` (every formulation equal to the int64 id
+   sums), ``probe_sharded_mem`` (the fused and world-of-one sharded trees
+   equal, each build's peak memory) and ``main_test``; every scan
+   kernel's launch count must rise over the phase.
 
 It prints the card's name and power limit, one JSON line each of the
 main path's, phase 7's, phase 9's, phases 10-11's, phase 12's
@@ -1660,6 +1664,23 @@ def _harness_phase(dev):
         if any("error" in x for x in lines):
             raise AssertionError(f"{name}: {lines}")
 
+    # the level's permutation inverse (three forms, equal), the mean_id id
+    # sums (every formulation equal to the int64 sums) and the builds'
+    # peak memory (the single-device and world-of-one trees equal): each
+    # harness raises where its equality fails
+    lines, _ = run("probe_perm", n)
+    out["probe_perm"] = lines[-1]
+    lines, _ = run("probe_meanid", "--n", n, "--reps", "3")
+    out["probe_meanid"] = lines[-1]
+    lines, _ = run("probe_sharded_mem", "--n", n)
+    out["probe_sharded_mem"] = lines[1:]
+    if not (out["probe_meanid"]["variants_exact"]
+            and [x["variant"] for x in lines[1:]] == [
+                "single_donate", "sharded_donate"]
+            and all(x["peak_gib"] > 0 for x in lines[1:])):
+        raise AssertionError(f"probe_meanid / probe_sharded_mem: "
+                             f"{out['probe_meanid']}, {lines[1:]}")
+
     run("main_test")
     torch.cuda.synchronize()
     out["launches"] = dict(bucket_scan=bs.bucket_scan.LAUNCHES,
@@ -1715,13 +1736,20 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     # ---- 1. build -----------------------------------------------------
+    sources = ("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab")
+    found = sum(cuda_build.library_path(x).exists() for x in sources)
+    start = ("cold (no library in build/)" if found == 0 else
+             "cached (every library found in build/)"
+             if found == len(sources) else
+             f"partly cached ({found} of {len(sources)} libraries found)")
     t0 = time.perf_counter()
-    cuda_build.build("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab")
+    cuda_build.build(*sources)
     for mod in (bs, bi, pab):
         mod._load()
     print(f"[build] vector_database_tpu_torch/csrc: bucket_scan_sm90.cu, "
           f"bucket_scan_i8.cu, probe_kernel_ab.cu (each with sm90.cuh), one "
-          f"nvcc each, built and loaded in {time.perf_counter() - t0:.2f} s")
+          f"nvcc each, {start}: built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. exactness where the scan is exact (n <= buckets) ------------
     g = torch.Generator(device=dev).manual_seed(42)

@@ -27,6 +27,9 @@ tree over ``make_mesh()`` and over ``make_mesh_2d(1, 1)`` with
 of a tie, as the split-dimension choice needs. The ``recall_qps`` and
 ``latency`` harnesses run at 100k x 96 on the card, with their recall
 floors, and a latency request ends with its rows on the host.
+``DynamicIndex.merge_delta`` on the card equals its CPU run, and the
+``probe_perm``, ``probe_meanid`` and ``probe_sharded_mem`` harnesses run
+there with their equalities.
 """
 
 import numpy as np
@@ -686,6 +689,35 @@ def test_host_loop_build_on_nccl_mesh_equals_single_device(nccl_mesh):
                             dim_axis="model"), one)
 
 
+@pytest.mark.cuda
+def test_delta_merge_on_card_equals_cpu(cuda_device):
+    """``DynamicIndex.merge_delta`` on the card (the delta's distances,
+    its tie-exact k best and the stable merge, all on the device) equals
+    its CPU run bit for bit on integer rows, where many distances tie,
+    with and without ``allowed``."""
+    from vector_database_tpu_torch import DynamicIndex
+
+    rng = np.random.default_rng(25)
+    main = rng.integers(-4, 5, (20_000, 16)).astype(np.float32)
+    delta = rng.integers(-2, 3, (3_000, 16)).astype(np.float32)
+    q = rng.integers(-2, 3, (300, 16)).astype(np.float32)
+    allowed = rng.choice(23_000, 5_000, replace=False)
+    ref = DynamicIndex(main, leaf_size=16, device="cpu")
+    top = ref.knn(q, k=10)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        idx = DynamicIndex(main, leaf_size=16, rebuild_fraction=100.0,
+                           device=dev)
+        idx.add(delta)
+        qd = torch.as_tensor(q, device=dev)
+        out[str(dev)] = [idx.merge_delta(qd, *top, 10),
+                         idx.merge_delta(qd, *top, 10, allowed=allowed)]
+    for (ci, cd), (gi, gd) in zip(out["cpu"], out["cuda"]):
+        assert np.array_equal(ci, gi) and np.array_equal(cd, gd)
+    ids, d2 = out["cpu"][0]
+    assert (d2[:, :-1] == d2[:, 1:]).any() and (ids >= 20_000).any()
+
+
 def _harness_lines(name, argv):
     import contextlib
     import importlib
@@ -740,3 +772,19 @@ def test_latency_harness_on_card(cuda_device, monkeypatch):
                        k=5, batch=8)
     rows, d2 = latency._request(srv, np.random.rand(8, 16).astype(np.float32))
     assert rows.device.type == d2.device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_perm_meanid_and_sharded_mem_harnesses_on_card(cuda_device):
+    """``probe_perm``, ``probe_meanid`` and ``probe_sharded_mem`` on the
+    card: each asserts its own equalities (three equal inverses, every
+    id-sum formulation exact, one tree single-device and sharded); the
+    peaks come from the allocator."""
+    perm = _harness_lines("probe_perm", ["1000000"])
+    assert perm[0]["device"] != "cpu" and perm[1]["scatter_ms"] > 0
+    meanid = _harness_lines("probe_meanid", ["--n", "1000000", "--reps",
+                                             "2"])[-1]
+    assert meanid["variants_exact"] and meanid["int64_ms"] > 0
+    mem = _harness_lines("probe_sharded_mem", ["--n", "200000"])[1:]
+    assert [x["variant"] for x in mem] == ["single_donate", "sharded_donate"]
+    assert all(x["peak_gib"] > 0 for x in mem)

@@ -32,6 +32,20 @@ def _equal(got, want, what):
                                       err_msg=str(what))
 
 
+def _same_up_to_ties(got, want, what):
+    """Distances bitwise equal; ids equal as sets among equal distances,
+    and the tie group at the k-th place of the same size (the JAX class
+    picks its members with ``argpartition``)."""
+    (gi, gd), (wi, wd) = got, want
+    np.testing.assert_array_equal(gd, wd, err_msg=str(what))
+    for i in range(gi.shape[0]):
+        for value in np.unique(wd[i]):
+            at = wd[i] == value
+            if value != wd[i, -1]:
+                assert set(gi[i][at].tolist()) == set(wi[i][at].tolist()), \
+                    (what, i)
+
+
 def test_churn_sequence_matches_jax():
     rng = np.random.default_rng(5)
     v = _ints(rng, (2500, 8))
@@ -290,3 +304,49 @@ def test_allowed_ids_reach_the_delta():
     ids, _ = dyn.knn(vecs[[3, 510]], k=2, allowed_ids=allowed)
     assert ids[0, 0] == 3 and ids[1, 0] == int(extra[10])
     assert set(ids.ravel().tolist()) <= set(allowed.tolist())
+
+
+def _delta_ties_case():
+    """Main: one row at distance 1 from the origin, 64 far rows at
+    distinct distances. Delta: 300 integer rows in six adds, each a copy
+    of one of three rows (distances 1, 2 and 4 from the origin), so every
+    distance is shared by ~100 adds and ``k`` cuts through a tie."""
+    rng = np.random.default_rng(3)
+    far = (40 + np.arange(64, dtype=np.float32))[:, None] * np.ones(4)
+    main = np.vstack([[1, 0, 0, 0], far]).astype(np.float32)
+    shapes = np.asarray([[0, 1, 0, 0], [0, 1, 1, 0], [0, 2, 0, 0]],
+                        np.float32)
+    delta = shapes[rng.integers(0, 3, 300)]
+    queries = np.asarray([[0, 0, 0, 0], [0, 1, 0, 0]], np.float32)
+    return main, delta, queries
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(exact=False),
+                                  dict(packed=True)])
+def test_delta_ties_keep_the_earliest_adds_in_add_order(mode):
+    """On a tie at the k-th distance the delta keeps its earliest adds,
+    equal distances come back in add order, and main rows lead delta
+    rows: one stable sort over the main rows, then the delta in add
+    order (the JAX class's ``argpartition`` keeps arbitrary adds: against
+    it, distances are bitwise and tie groups sets)."""
+    main, delta, queries = _delta_ties_case()
+    kw = dict(leaf_size=4, rebuild_fraction=100.0)
+    index = DynamicIndex(main, device="cpu", **kw)
+    jax_index = JaxDynamicIndex(main, **kw)
+    added = np.concatenate([index.add(delta[s:s + 50])
+                            for s in range(0, 300, 50)])
+    for s in range(0, 300, 50):
+        jax_index.add(delta[s:s + 50])
+    assert index._delta_size() == 300
+    all_ids = np.concatenate([np.arange(main.shape[0]), added])
+    rows = np.vstack([main, delta])
+    for k in (10, 120):
+        ids, d2 = index.knn(queries, k=k, **mode)
+        for i, q in enumerate(queries):
+            dist = ((rows - q) ** 2).sum(1).astype(np.float32)
+            order = np.argsort(dist, kind="stable")[:k]
+            np.testing.assert_array_equal(d2[i], dist[order])
+            np.testing.assert_array_equal(ids[i], all_ids[order],
+                                          err_msg=str((k, i, mode)))
+        _same_up_to_ties((ids, d2), jax_index.knn(queries, k=k, **mode),
+                         (k, mode))

@@ -34,7 +34,8 @@ HARNESSES = [
     "recall_qps", "make_hdf5", "latency", "probe_epilogue", "probe_select",
     "probe_host_rerank", "probe_pin_pipeline", "bigscale", "probe_churn",
     "crossover", "probe_fullscan", "probe_kernel", "probe_block",
-    "probe_build", "probe_ops", "main_test",
+    "probe_build", "probe_ops", "main_test", "probe_perm", "probe_meanid",
+    "probe_sharded_mem",
 ]
 
 

@@ -59,6 +59,9 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.benchmarks.probe_build",
     "vector_database_tpu_torch.benchmarks.probe_ops",
     "vector_database_tpu_torch.benchmarks.main_test",
+    "vector_database_tpu_torch.benchmarks.probe_perm",
+    "vector_database_tpu_torch.benchmarks.probe_meanid",
+    "vector_database_tpu_torch.benchmarks.probe_sharded_mem",
 ])
 def test_import_leaves_jax_out(module):
     code = (

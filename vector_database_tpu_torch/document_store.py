@@ -186,7 +186,8 @@ class DocumentStore:
                 if bool(res.overflow[0]):
                     # candidate buffer at its growth cap: scan this
                     # document exactly instead
-                    d2 = exact_d2_blocked(point, doc.index.vectors)[0]
+                    d2 = to_numpy(
+                        exact_d2_blocked(point, doc.index.vectors))[0]
                     m = d2 <= domain * domain
                     rows, d2 = to_numpy(doc.index.orig_row)[m], d2[m]
                 else:
@@ -282,7 +283,7 @@ class DocumentStore:
         sub_pos = {}
         if ovf.any():
             sub = np.nonzero(ovf)[0]
-            ex_d2 = exact_d2_blocked(points[sub], index.vectors)
+            ex_d2 = to_numpy(exact_d2_blocked(points[sub], index.vectors))
             orig = to_numpy(index.orig_row)
             sub_pos = {int(qv): j for j, qv in enumerate(sub)}
         delta = self._delta_arrays()

@@ -15,7 +15,11 @@ Differences from the JAX class, none of which changes a result: the
 delta is a list of row chunks (one per ``add``), not a list of rows, so a
 10M-row constructor holds one chunk; and ``compact`` gathers the live
 main rows on the device, where the JAX class pulled the main matrix to
-the host once per compaction epoch.
+the host once per compaction epoch. One difference changes ties only:
+the delta merge runs on the device and keeps the earlier add on equal
+distances, where the JAX class's host partial sort (numpy's introselect)
+keeps arbitrary rows on a tie at the k-th distance and may list equal
+distances out of add order.
 """
 
 from __future__ import annotations
@@ -38,25 +42,26 @@ from vector_database_tpu_torch.ops.packed_knn import (
     pack_database,
     pallas_scan_knn_packed,
 )
-from vector_database_tpu_torch.ops.scan_knn import scan_knn
+from vector_database_tpu_torch.ops.scan_knn import _lowest_k, scan_knn
 from vector_database_tpu_torch.search import search as bsp_search
 from vector_database_tpu_torch.utils.device import resolve_device
 
 
-def exact_d2_blocked(queries, vectors: torch.Tensor) -> np.ndarray:
-    """Squared distances ``[Q, N]`` (numpy) by the tree rerank's direct
-    difference form, so exact fallbacks agree with the tree on boundary
-    rows, with the ``[Q, block, D]`` transient capped near 256 MB."""
+def exact_d2_blocked(queries, vectors: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``[Q, N]`` on the vectors' device by the tree
+    rerank's direct difference form, so exact fallbacks agree with the
+    tree on boundary rows; in blocks of at least 1,024 rows, whose
+    ``[Q, block, D]`` transient stays near 256 MB where ``Q`` allows."""
     q = atleast_2d(as_f32(queries, vectors.device))
     nq, d = q.shape
     n = vectors.shape[0]
     block = max(1024, (1 << 28) // max(1, nq * d * 4))
     if n <= block:
-        return to_numpy(exact_sq_dists(q, vectors))
-    return np.concatenate([
-        to_numpy(exact_sq_dists(q, vectors[s : s + block]))
+        return exact_sq_dists(q, vectors)
+    return torch.cat([
+        exact_sq_dists(q, vectors[s : s + block])
         for s in range(0, n, block)
-    ], axis=1)
+    ], dim=1)
 
 
 class DynamicIndex:
@@ -226,7 +231,8 @@ class DynamicIndex:
             if bool(res.overflow[0]):
                 # the walk's candidate buffer capped out: a truncated
                 # answer would leave in-radius rows alive, so scan exactly
-                d2 = exact_d2_blocked(vector, self._index.vectors)[0]
+                d2 = to_numpy(
+                    exact_d2_blocked(vector, self._index.vectors))[0]
                 rows = to_numpy(self._index.orig_row)[d2 <= r2]
             else:
                 rows = to_numpy(res.rows[0])
@@ -279,10 +285,10 @@ class DynamicIndex:
             sub_pos = {}
             if ovf.any():
                 sub = np.nonzero(ovf)[0]
-                exact_d2 = exact_d2_blocked(
+                exact_d2 = to_numpy(exact_d2_blocked(
                     queries[torch.from_numpy(sub).to(self._device)],
                     self._index.vectors,
-                )
+                ))
                 orig = to_numpy(self._index.orig_row)
                 sub_pos = {int(q): j for j, q in enumerate(sub)}
             for qi in range(nq):
@@ -297,7 +303,8 @@ class DynamicIndex:
                 out[qi][0].extend(self._main_ids[rows[alive]].tolist())
                 out[qi][1].extend(d2[alive].tolist())
         if self._delta_vecs:
-            d2 = exact_d2_blocked(queries, torch.cat(self._delta_vecs))
+            d2 = to_numpy(
+                exact_d2_blocked(queries, torch.cat(self._delta_vecs)))
             dids = np.concatenate(self._delta_ids)
             for qi in range(nq):
                 hit = d2[qi] <= r2
@@ -416,30 +423,32 @@ class DynamicIndex:
 
     def merge_delta(self, queries, ids, d2, k: int, *, allowed=None):
         """Merge the delta rows into a main-segment top-k ``(ids [Q, k],
-        d2 [Q, k])``: exact f32 distances to the padded delta on the
-        device, then the top-k merge on the host. Delta results are exact
-        in every serving mode."""
+        d2 [Q, k])``, on the index's device: exact f32 distances to the
+        padded delta, the delta's ``k`` best (equal distances keep the
+        earlier add), then one stable sort of main and delta together,
+        so main rows lead delta rows on equal distances. Only the merged
+        ``[Q, k]`` comes back to the host. Delta results are exact in
+        every serving mode."""
         dmat, dids = self._delta_view()
         if dmat is None:
             return ids, d2
-        dd2 = exact_d2_blocked(queries, dmat)
-        dd2 = np.where(dids[None, :] >= 0, dd2, np.inf)
+        dev = dmat.device
+        live = dids >= 0
         if allowed is not None:
-            dd2 = np.where(np.isin(dids, allowed)[None, :], dd2, np.inf)
-        if dids.size > k:
-            part = np.argpartition(dd2, k - 1, axis=1)[:, :k]
-            dd2 = np.take_along_axis(dd2, part, 1)
-            dsel = dids[part]
-        else:
-            dsel = np.broadcast_to(dids[None, :], dd2.shape)
-        cat_d = np.concatenate([d2, dd2.astype(np.float32)], axis=1)
-        cat_i = np.concatenate([ids, dsel], axis=1)
-        order = np.argsort(cat_d, axis=1, kind="stable")[:, :k]
-        d2 = np.take_along_axis(cat_d, order, 1).astype(np.float32)
-        ids = np.where(
-            np.isfinite(d2), np.take_along_axis(cat_i, order, 1), -1
-        )
-        return ids, d2
+            live &= np.isin(dids, allowed)
+        dd2 = torch.where(torch.from_numpy(live).to(dev),
+                          exact_d2_blocked(queries, dmat), float("inf"))
+        dd2, pos = _lowest_k(dd2, min(k, dids.size))
+        cat_d = torch.cat([
+            torch.as_tensor(d2, dtype=torch.float32, device=dev), dd2], 1)
+        cat_i = torch.cat([
+            torch.as_tensor(ids, dtype=torch.int64, device=dev),
+            torch.from_numpy(dids).to(dev)[pos]], 1)
+        d2, order = torch.sort(cat_d, dim=1, stable=True)
+        d2 = d2[:, :k]
+        ids = torch.where(torch.isfinite(d2), cat_i.gather(1, order[:, :k]),
+                          -1)
+        return to_numpy(ids), to_numpy(d2)
 
     # --- maintenance ----------------------------------------------------
     def _maybe_compact(self) -> None:

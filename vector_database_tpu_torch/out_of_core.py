@@ -464,8 +464,11 @@ class ChunkedIndex:
         HOST, gathering only the O(Q * k_scan * w) candidate rows from the
         (possibly memmapped) chunk vectors: the out-of-core twin of the
         device rerank tail of ``_scan_knn_packed_impl``. ``qh`` must be in
-        the chunk's metric space (unit rows for cosine). numpy, line for
-        line the JAX package's, so the results are the same."""
+        the chunk's metric space (unit rows for cosine). numpy, the JAX
+        package's arithmetic; the best ``k`` come from one stable sort of
+        the keys, as on the device, where the JAX package's partial sort
+        (numpy's introselect) keeps arbitrary entries on a tie at the k-th
+        place."""
         capn = c["cap"]
         ip = self._metric == "ip"
         safe = np.clip(short, 0, capn - 1)
@@ -486,13 +489,11 @@ class ChunkedIndex:
             # the ip -inf/NaN case, as the device rerank does)
             key = np.where((short < capn) & np.isfinite(key), key, np.inf)
         kk = min(k, key.shape[1])
-        pos = np.argpartition(key, kk - 1, axis=1)[:, :kk]
+        # one stable sort of the [Q, C] keys, the device rerank's rule:
+        # equal keys keep their shortlist order, also at the k-th place
+        pos = np.argsort(key, axis=1, kind="stable")[:, :kk]
         pkey = np.take_along_axis(key, pos, 1)
-        order = np.argsort(pkey, axis=1, kind="stable")
-        pkey = np.take_along_axis(pkey, order, 1)
-        rows = np.take_along_axis(
-            np.take_along_axis(short, pos, 1), order, 1
-        )
+        rows = np.take_along_axis(short, pos, 1)
         rows = np.where(np.isfinite(pkey), rows, -1)
         if k > kk:
             rows = np.pad(rows, ((0, 0), (0, k - kk)), constant_values=-1)
