@@ -131,11 +131,23 @@ Phases (each raises on failure; nothing is caught):
    sums), ``probe_sharded_mem`` (the fused and world-of-one sharded trees
    equal, each build's peak memory) and ``main_test``; every scan
    kernel's launch count must rise over the phase.
+15. the headline bench, ``vector_database_tpu_torch.bench.main`` in this
+   process at its defaults (10M x 96, leaf 16; the clustered recipe
+   served at q=4096, 4096 buckets, probes 192/256/320, 20 reps; the
+   sharded build field and the mesh serving leg on a world of one rank):
+   return value 0, no ``*_error`` field, JAX's key set, full recall@10
+   >= 0.98, three pruned points, the sharded full and pruned rows bitwise
+   the single-device rows; ``bucket_scan``'s launch count must rise. Then
+   its ingest (``VDB_BENCH_INGEST=1``), sharded-primary
+   (``VDB_BENCH_SHARDED=1``) and ``VDB_BENCH_TIE=mean_id`` legs, each cut
+   to BENCH_CUT_N = 1M rows: return value 0 and JAX's key set. No process
+   group may be left behind.
 
 It prints the card's name and power limit, one JSON line each of the
 main path's, phase 7's, phase 9's, phases 10-11's, phase 12's
-(``{"mesh": ...}``), phase 13's (``{"host_loop": ...}``) and phase 14's
-(``{"harness": ...}``) results, one JSON line of kernel results (each
+(``{"mesh": ...}``), phase 13's (``{"host_loop": ...}``), phase 14's
+(``{"harness": ...}``) and phase 15's (``{"bench": ...}``) results, one
+JSON line of kernel results (each
 kernel with its time, its plain version's, its bound from this run's
 shapes and the card's
 published peaks, the library yardstick, TFLOP/s and share of the bound),
@@ -1696,6 +1708,111 @@ def _harness_phase(dev):
     return out
 
 
+BENCH_CUT_N = 1_000_000
+BENCH_BLOCK = 8192  # pack_database's block at 4096 buckets
+
+
+def _bench_keys(env, nb):
+    """The keys JAX's ``bench.py`` prints for the knobs in ``env`` when the
+    serving pack has ``nb`` blocks (one rank: the sharded pack too)."""
+    keys = {"metric", "value", "unit", "vs_baseline", "serve_n", "serve_q",
+            "serve_buckets", "serve_pack_s", "serve_full_qps",
+            "serve_full_recall", "serve_sharded_devices",
+            "serve_sharded_pack_s", "serve_sharded_full_qps",
+            "serve_sharded_full_recall"}
+    if env.get("VDB_BENCH_SHARDED") != "1":
+        keys |= {"build_sharded_vps", "build_sharded_devices"}
+    pts = sorted({min(int(p), nb) for p in
+                  env.get("VDB_BENCH_PROBES", "192,256,320").split(",")})
+    if pts[-1] < nb:
+        keys |= {"serve_pruned", "serve_headline_qps", "serve_headline_recall",
+                 "serve_headline_probes", "serve_qps_vs_target",
+                 "serve_sharded_pruned"}
+    elif pts[len(pts) // 2] < nb:
+        keys.add("serve_sharded_pruned")
+    return keys
+
+
+def _run_bench(env, rows_out=None):
+    """``vector_database_tpu_torch.bench.main`` in this process with the
+    knobs in ``env`` (none else): ``(its one JSON line, seconds)``, held
+    to return value 0, no ``*_error`` field and JAX's key set. Its output
+    is kept, and printed if it raises."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vector_database_tpu_torch import bench
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = bench.main(env=env, rows_out=rows_out)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(f"[bench] {env} failed; its output:\n" + buf.getvalue())
+        raise
+    secs = time.perf_counter() - t0
+    (line,) = [json.loads(x) for x in buf.getvalue().splitlines()]
+    print(f"[bench] {env or 'defaults'}: {secs:.2f} s, returned {ret}")
+    if ret != 0 or [k for k in line if k.endswith("_error")]:
+        raise AssertionError(f"bench {env} returned {ret}: {line}")
+    n = int(env.get("VDB_BENCH_N", N))
+    if set(line) != _bench_keys(env, -(-n // BENCH_BLOCK)):
+        raise AssertionError(f"bench {env}: keys {sorted(line)} are not "
+                             "JAX's")
+    return line, secs
+
+
+def _bench_phase(dev):
+    """Phase 15: the headline bench (``vector_database_tpu_torch.bench``)
+    at its defaults, then its ingest, sharded-primary and ``mean_id``
+    legs at BENCH_CUT_N rows; the scan kernel's launches counted over the
+    headline run."""
+    import torch
+    import torch.distributed as dist
+
+    from vector_database_tpu_torch.ops import bucket_scan as bs
+
+    t_phase = time.perf_counter()
+    rows = {}
+    bs.bucket_scan.LAUNCHES = 0
+    line, secs = _run_bench({}, rows)
+    launches = bs.bucket_scan.LAUNCHES
+    if line["serve_full_recall"] < 0.98:
+        raise AssertionError(f"bench: full recall@10 < 0.98: {line}")
+    if [x["probes"] for x in line["serve_pruned"]] != list(PROBES):
+        raise AssertionError(f"bench: pruned points {line['serve_pruned']}")
+    if line["serve_sharded_full_recall"] != line["serve_full_recall"]:
+        raise AssertionError("bench: the sharded recall != the "
+                             "single-device recall")
+    p = line["serve_sharded_pruned"]["probes"]
+    for sharded, single in (("sharded_full", "full"),
+                            ("sharded_pruned", f"pruned_{p}")):
+        if not all(torch.equal(a, b)
+                   for a, b in zip(rows[sharded], rows[single])):
+            raise AssertionError(f"bench: {sharded} != {single} (world of "
+                                 "one, bitwise)")
+    if launches < 1:
+        raise AssertionError("the bench launched no bf16 scan kernel")
+    print(f"[bench] world of one: full and pruned {p} rows == the "
+          f"single-device rows (bitwise); bucket_scan launches {launches}")
+    out = dict(headline=line, launches=launches, seconds=dict(headline=secs))
+    del rows
+    for name, knob, value in (("ingest", "VDB_BENCH_INGEST", "1"),
+                              ("sharded", "VDB_BENCH_SHARDED", "1"),
+                              ("mean_id", "VDB_BENCH_TIE", "mean_id")):
+        out[name], out["seconds"][name] = _run_bench(
+            {"VDB_BENCH_N": str(BENCH_CUT_N), knob: value})
+    if dist.is_initialized():
+        raise AssertionError("the bench left a process group behind")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[bench] phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2146,6 +2263,10 @@ def main():
 
     # ---- 14. the measurement harnesses ----------------------------------
     harness = _harness_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 15. the headline bench -----------------------------------------
+    bench = _bench_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -2160,6 +2281,7 @@ def main():
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"host_loop": hl}))
     print(json.dumps({"harness": harness}))
+    print(json.dumps({"bench": bench}))
     print(json.dumps({"kernels": [{
         "name": "bucket_scan",
         "route": "cuda",
@@ -2199,6 +2321,7 @@ def main():
         "sharded_launches": mesh["launches"],
         "hostloop_launches": hl["launches"],
         "harness_launches": harness["launches"]["bucket_scan"],
+        "bench_launches": bench["launches"],
     }, {
         "name": "bucket_scan_int8f",
         "route": "cuda",

@@ -29,7 +29,9 @@ of a tie, as the split-dimension choice needs. The ``recall_qps`` and
 floors, and a latency request ends with its rows on the host.
 ``DynamicIndex.merge_delta`` on the card equals its CPU run, and the
 ``probe_perm``, ``probe_meanid`` and ``probe_sharded_mem`` harnesses run
-there with their equalities.
+there with their equalities. The headline bench
+(``vector_database_tpu_torch.bench``) runs every leg at 200k x 96 with
+its recall floor, its world-of-one sharded rows the single-device rows.
 """
 
 import numpy as np
@@ -788,3 +790,33 @@ def test_perm_meanid_and_sharded_mem_harnesses_on_card(cuda_device):
     mem = _harness_lines("probe_sharded_mem", ["--n", "200000"])[1:]
     assert [x["variant"] for x in mem] == ["single_donate", "sharded_donate"]
     assert all(x["peak_gib"] > 0 for x in mem)
+
+
+@pytest.mark.cuda
+def test_headline_bench_on_card(cuda_device):
+    """``vector_database_tpu_torch.bench`` at 200k x 96 on the card
+    (q=1024, probes 4 and 8, every leg): one JSON line, return value 0,
+    no error field, full recall@10 >= 0.98, the world-of-one sharded rows
+    bitwise the single-device rows, the scan kernel launched."""
+    import contextlib
+    import io
+    import json
+
+    from vector_database_tpu_torch import bench
+
+    tbs.bucket_scan.LAUNCHES = 0
+    rows, out = {}, io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = bench.main(env=dict(VDB_BENCH_N="200000", VDB_BENCH_Q="1024",
+                                  VDB_BENCH_PROBES="4,8"), rows_out=rows)
+    (line,) = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert ret == 0 and not [k for k in line if k.endswith("_error")], line
+    assert line["serve_full_recall"] >= 0.98, line
+    assert [x["probes"] for x in line["serve_pruned"]] == [4, 8]
+    assert line["serve_sharded_full_recall"] == line["serve_full_recall"]
+    p = line["serve_sharded_pruned"]["probes"]
+    for sharded, single in (("sharded_full", "full"),
+                            ("sharded_pruned", f"pruned_{p}")):
+        for got, want in zip(rows[sharded], rows[single]):
+            assert torch.equal(got, want), sharded
+    assert tbs.bucket_scan.LAUNCHES > 0

@@ -62,6 +62,7 @@ REPO = Path(__file__).resolve().parents[1]
     "vector_database_tpu_torch.benchmarks.probe_perm",
     "vector_database_tpu_torch.benchmarks.probe_meanid",
     "vector_database_tpu_torch.benchmarks.probe_sharded_mem",
+    "vector_database_tpu_torch.bench",
 ])
 def test_import_leaves_jax_out(module):
     code = (

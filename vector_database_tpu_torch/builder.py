@@ -245,6 +245,7 @@ def build_index_fused(
     leaf_size: int = 1,
     max_levels: Optional[int] = None,
     stats_subsample: Optional[int] = None,
+    donate: bool = False,
     tie_break: str = "positional",
     progress: Optional[Callable[[int, int, int], None]] = None,
     split: str = "alternate",
@@ -257,8 +258,11 @@ def build_index_fused(
     singleton leaves). ``max_levels``: optional depth cap; remaining ranges
     become oversized leaves. ``stats_subsample``: rank split dimensions
     from every k-th row (default 4 above 500k rows, else 1); the split
-    planes stay exact. ``tie_break``: ``"positional"`` halves rows on the
-    plane (and zero-variance segments) by rank; ``"mean_id"`` is the
+    planes stay exact. ``donate``: accepted for the JAX signature. The
+    first level's permutation already makes a new tensor; the input lives
+    on while the caller holds it (``del`` it to free it). ``tie_break``:
+    ``"positional"`` halves rows on the plane (and zero-variance
+    segments) by rank; ``"mean_id"`` is the
     reference rule ``id > floor(mean(ids))`` with exact id sums, for
     reference tree-shape parity (at most 2^30 - 1 rows, as in the JAX
     package). ``progress``: host callback ``(level, live_segments,
@@ -266,6 +270,7 @@ def build_index_fused(
     ``split``: ``"alternate"`` (the reference's max/min-variance parity
     rule) or ``"max"`` (max variance every level).
     """
+    del donate
     vectors = as_f32(vectors, device)
     n, d = vectors.shape
     if n == 0:
