@@ -1,0 +1,8 @@
+"""``device_idle_pct.serve``: the share of a serving cell's traced window
+in which no device operation runs."""
+
+
+def read(t):
+    if t.kind != "serve_batch" or not t.device_ops or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)

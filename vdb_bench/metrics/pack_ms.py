@@ -1,0 +1,10 @@
+"""``pack_ms``: the median of the rebuild window's ``pack`` spans (the host
+clock around the program's pack call, ending in a synchronise), in
+milliseconds; the operations inside the traced seconds are left out."""
+
+import statistics
+
+
+def read(t):
+    spans = t.spans.get("pack") if t.kind == "rebuild" else None
+    return statistics.median(spans) * 1e3 if spans else None
