@@ -377,11 +377,12 @@ def _dynamic_phase(dev):
     from vector_database_tpu_torch import DynamicIndex, exact_knn
     from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.ops.packed_knn import _block_map
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     out = {}
     train, test, centers, g = _clustered(dev, N, SEED)
     torch.cuda.synchronize()
-    bs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     t0 = time.perf_counter()
     idx = DynamicIndex(train, leaf_size=LEAF, device=dev)
     torch.cuda.synchronize()
@@ -482,7 +483,7 @@ def _dynamic_phase(dev):
     if np.isin(cids, removed).any() or len(idx) != N - REMOVE + ADD:
         raise AssertionError("compaction lost or revived rows")
     torch.cuda.synchronize()
-    out["launches"] = bs.bucket_scan.LAUNCHES
+    out["launches"] = COUNTERS["scan.launches.bf16"]
     if out["launches"] < 1:
         raise AssertionError("DynamicIndex never launched bucket_scan")
     print(f"[dynamic] compact {out['compact_s']:.3f} s, then a packed "
@@ -537,13 +538,13 @@ def _store_phase(dev):
     import torch
 
     from vector_database_tpu_torch import DocumentStore, exact_ball, exact_knn
-    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     out = {}
     n = STORE_DOCS * STORE_TEXTS
     train, test, centers, g = _clustered(dev, n, SEED + 3)
     host = train.cpu().numpy()
-    bs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     store = DocumentStore(leaf_size=LEAF, device=dev)
     t0 = time.perf_counter()
     docs = [store.create_document(f"doc{i}") for i in range(STORE_DOCS)]
@@ -619,7 +620,7 @@ def _store_phase(dev):
     if not (np.array_equal(got[:, 0], new_tids) and (got_d2[:, 0] == 0).all()):
         raise AssertionError("an added text is not its own nearest at 0")
     torch.cuda.synchronize()
-    out["launches"] = bs.bucket_scan.LAUNCHES
+    out["launches"] = COUNTERS["scan.launches.bf16"]
     if out["launches"] < 1:
         raise AssertionError("DocumentStore never launched bucket_scan")
     print(f"[store] {STORE_ADD} add_text rows served from the delta at "
@@ -641,14 +642,15 @@ def _tail_phase(dev):
     from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
     from vector_database_tpu_torch.ops.packed_knn import _scan_queries
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     out = {}
     train, test, _, g = _clustered(dev, TAIL_N, SEED + 6)
     truth = exact_knn(train, test[:TRUTH_Q], k=K)[0]
     packs = {}
     torch.cuda.synchronize()
-    bs.bucket_scan.LAUNCHES = bs.bucket_scan.LAUNCHES_INT8F = 0
-    bi.bucket_scan_i8.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = COUNTERS["scan.launches.int8f"] = 0
+    COUNTERS["scan.launches.int8"] = 0
     for dtype, floor in (("bfloat16", 0.98), ("int8f", 0.90), ("int8", 0.90)):
         p = pack_database(train, buckets=TAIL_BUCKETS, dtype=dtype)
         if not p.m == p.block == TAIL_BUCKETS:
@@ -667,9 +669,9 @@ def _tail_phase(dev):
                                  f"< {floor}")
         packs[dtype] = p
     torch.cuda.synchronize()
-    out["launches"] = dict(bucket_scan=bs.bucket_scan.LAUNCHES,
-                           bucket_scan_int8f=bs.bucket_scan.LAUNCHES_INT8F,
-                           bucket_scan_i8=bi.bucket_scan_i8.LAUNCHES)
+    out["launches"] = dict(bucket_scan=COUNTERS["scan.launches.bf16"],
+                           bucket_scan_int8f=COUNTERS["scan.launches.int8f"],
+                           bucket_scan_i8=COUNTERS["scan.launches.int8"])
     if min(out["launches"].values()) < 1:
         raise AssertionError(f"m = {TAIL_BUCKETS} launches: {out['launches']}")
 
@@ -844,6 +846,7 @@ def _ooc_phase(dev, main_kernel_ms):
         _block_map,
         pallas_scan_knn_candidates,
     )
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     out = {}
     chunks = OOC_N // OOC_CHUNK
@@ -895,7 +898,7 @@ def _ooc_phase(dev, main_kernel_ms):
 
         env = os.environ.get("VDB_PIN_PIPELINE")
         torch.cuda.synchronize()
-        bs.bucket_scan.LAUNCHES = 0
+        COUNTERS["scan.launches.bf16"] = 0
         results = {}
 
         def run(name, reps=REPS, **kw):
@@ -923,7 +926,7 @@ def _ooc_phase(dev, main_kernel_ms):
             os.environ["VDB_PIN_PIPELINE"] = env
         run("pinned_device_rerank", host_rerank=False)
         torch.cuda.synchronize()
-        out["launches"] = bs.bucket_scan.LAUNCHES
+        out["launches"] = COUNTERS["scan.launches.bf16"]
         if out["launches"] < 1:
             raise AssertionError("the chunk path never launched bucket_scan")
         for a, b in (("pinned", "pinned_seq"), ("streamed", "pinned"),
@@ -1157,8 +1160,8 @@ def _mesh_phase(dev, single_qps):
         pallas_scan_knn_packed_rt,
     )
     from vector_database_tpu_torch import parallel as par
-    from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.search import calibrate_radius
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     out = {}
     t0 = time.perf_counter()
@@ -1231,7 +1234,7 @@ def _mesh_phase(dev, single_qps):
 
     # the sharded serve: the launch count covers these calls only
     torch.cuda.synchronize()
-    bs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     got = {
         "full": par.sharded_scan_knn(sdb, test, k=K, q_tile=q_tile),
         "static256": par.sharded_scan_knn(sdb, test, k=K, q_tile=q_tile,
@@ -1252,7 +1255,7 @@ def _mesh_phase(dev, single_qps):
                sharded_probes256_recall=_recall(
                    psrv.query(test)[0][:TRUTH_Q], truth))
     torch.cuda.synchronize()
-    out["launches"] = bs.bucket_scan.LAUNCHES
+    out["launches"] = COUNTERS["scan.launches.bf16"]
     if out["launches"] < 1:
         raise AssertionError("the sharded serve never launched bucket_scan")
     if rec < 0.98:
@@ -1376,9 +1379,8 @@ def _hostloop_phase(dev, fused_build_s):
     from vector_database_tpu_torch import entry as twin
     from vector_database_tpu_torch import parallel as par
     from vector_database_tpu_torch.builder import _level_to_host
-    from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.utils import datasets
-    from vector_database_tpu_torch.utils.profiling import BuildStats
+    from vector_database_tpu_torch.utils.profiling import BuildStats, COUNTERS
 
     t_phase = time.perf_counter()
     out = dict(fused_build_s_phase3=fused_build_s)
@@ -1387,7 +1389,7 @@ def _hostloop_phase(dev, fused_build_s):
 
     # the main path of this phase: build, pack, serve; the launch count
     # covers it alone
-    bs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     trees, stats = [], []
     for key in ("build_s", "build_again_s"):
         stats.append(BuildStats())
@@ -1426,7 +1428,7 @@ def _hostloop_phase(dev, fused_build_s):
     rec = _recall(srv.query(test)[0][:TRUTH_Q], truth)
     torch.cuda.synchronize()
     out.update(full_ms=ms, full_qps=Q / ms * 1e3, full_recall=rec,
-               launches=bs.bucket_scan.LAUNCHES)
+               launches=COUNTERS["scan.launches.bf16"])
     print(f"[host_loop] pack {out['pack_s']:.3f} s; PackedServer full scan "
           f"q={Q}: {ms:.3f} ms, {out['full_qps']:.1f} QPS, recall@{K} "
           f"{rec:.4f}; bucket_scan launches {out['launches']}")
@@ -1558,15 +1560,14 @@ def _harness_phase(dev):
     kernels' launches counted over the phase."""
     import torch
 
-    from vector_database_tpu_torch.ops import bucket_scan as bs
-    from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     t_phase = time.perf_counter()
     n, chunk = str(HARNESS_N), str(HARNESS_N // 2)
     tmp = os.path.join("build", f"chip_smoke_harness_{os.getpid()}")
     out, secs = {}, {}
-    bs.bucket_scan.LAUNCHES = bs.bucket_scan.LAUNCHES_INT8F = 0
-    bi.bucket_scan_i8.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = COUNTERS["scan.launches.int8f"] = 0
+    COUNTERS["scan.launches.int8"] = 0
 
     def run(name, *argv):
         lines, ret, t = _run_harness(name, list(argv))
@@ -1695,9 +1696,9 @@ def _harness_phase(dev):
 
     run("main_test")
     torch.cuda.synchronize()
-    out["launches"] = dict(bucket_scan=bs.bucket_scan.LAUNCHES,
-                           bucket_scan_int8f=bs.bucket_scan.LAUNCHES_INT8F,
-                           bucket_scan_i8=bi.bucket_scan_i8.LAUNCHES)
+    out["launches"] = dict(bucket_scan=COUNTERS["scan.launches.bf16"],
+                           bucket_scan_int8f=COUNTERS["scan.launches.int8f"],
+                           bucket_scan_i8=COUNTERS["scan.launches.int8"])
     out["seconds"] = secs
     out["phase_s"] = time.perf_counter() - t_phase
     if min(out["launches"].values()) < 1:
@@ -1774,13 +1775,13 @@ def _bench_phase(dev):
     import torch
     import torch.distributed as dist
 
-    from vector_database_tpu_torch.ops import bucket_scan as bs
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     t_phase = time.perf_counter()
     rows = {}
-    bs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     line, secs = _run_bench({}, rows)
-    launches = bs.bucket_scan.LAUNCHES
+    launches = COUNTERS["scan.launches.bf16"]
     if line["serve_full_recall"] < 0.98:
         raise AssertionError(f"bench: full recall@10 < 0.98: {line}")
     if [x["probes"] for x in line["serve_pruned"]] != list(PROBES):
@@ -1840,6 +1841,7 @@ def main():
         _block_map,
         _scan_queries,
     )
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
     from vector_database_tpu_torch.search import calibrate_radius
 
     dev = torch.device(DEVICE)
@@ -1885,7 +1887,7 @@ def main():
     train, test, _, _ = _clustered(dev, N, SEED)
     torch.cuda.synchronize()
 
-    bs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     t0 = time.perf_counter()
     index = build_index_fused(train, leaf_size=LEAF)
     torch.cuda.synchronize()
@@ -1935,7 +1937,7 @@ def main():
         print(f"[main] pruned probes={p} ({p / nb:.4f} of blocks): "
               f"{ms:.3f} ms, {Q / ms * 1e3:.1f} QPS, recall@{K} {rec:.4f}")
     torch.cuda.synchronize()
-    launches = bs.bucket_scan.LAUNCHES
+    launches = COUNTERS["scan.launches.bf16"]
     if launches < 1:
         raise AssertionError("the main path never launched bucket_scan")
     print(f"[main] bucket_scan launches on the main path: {launches}")
@@ -2038,8 +2040,8 @@ def main():
 
     # ---- 6. int8 and int8f packs at full width -------------------------
     bf16_bytes = pack.vb.numel() * pack.vb.element_size()
-    bs.bucket_scan.LAUNCHES = bs.bucket_scan.LAUNCHES_INT8F = 0
-    bi.bucket_scan_i8.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = COUNTERS["scan.launches.int8f"] = 0
+    COUNTERS["scan.launches.int8"] = 0
     packs = {}
     for dtype in ("int8", "int8f"):
         t0 = time.perf_counter()
@@ -2075,14 +2077,14 @@ def main():
         print(f"[int8] int8f pruned probes={p}: {ms:.3f} ms, "
               f"{Q / ms * 1e3:.1f} QPS, recall@{K} {rec:.4f}")
     torch.cuda.synchronize()
-    i8_launches = bi.bucket_scan_i8.LAUNCHES
-    i8f_launches = bs.bucket_scan.LAUNCHES_INT8F
+    i8_launches = COUNTERS["scan.launches.int8"]
+    i8f_launches = COUNTERS["scan.launches.int8f"]
     if i8_launches < 1 or i8f_launches < 1:
         raise AssertionError(f"int8 path launches: i8 {i8_launches}, "
                              f"int8f {i8f_launches}")
     print(f"[int8] launches on the int8 paths: bucket_scan_i8 "
           f"{i8_launches}, bucket_scan int8f {i8f_launches}, bf16 "
-          f"{bs.bucket_scan.LAUNCHES}")
+          f"{COUNTERS['scan.launches.bf16']}")
 
     qp = torch.zeros((Q, d_pad), device=dev)
     qp[:, :D] = test

@@ -16,7 +16,8 @@ partial tile in the grid's last CTA; int8 blocks of 1000 columns lie in
 rows padded to 16 bytes (``pad_rows``), as ``pack_database`` lays them;
 slices that start off 16-byte boundaries (m 125 or 250 in blocks of
 1000) are scanned from a copy in aligned slices (``pad_slices``).
-Two builds of one input give the same tree. A ``ChunkedIndex`` of three
+Two builds of one input give the same tree, and ``BuildStats``'s
+CUDA events add up to the build's time within 10%. A ``ChunkedIndex`` of three
 chunks serves pinned, pipelined or not, and streamed, with equal results.
 On ``make_mesh()``, a world of one rank over NCCL, the sharded build and
 the sharded scan of 1M x 96 float rows equal the single-device ones bit
@@ -41,6 +42,7 @@ import torch
 from vector_database_tpu_torch.benchmarks import probe_kernel_ab as tab
 from vector_database_tpu_torch.ops import bucket_scan as tbs
 from vector_database_tpu_torch.ops import bucket_scan_i8 as tbi
+from vector_database_tpu_torch.utils.profiling import COUNTERS
 
 
 @pytest.fixture
@@ -109,9 +111,9 @@ def test_i8_kernel_matches_plain_on_card(cuda_device, q_pad, d_pad, block,
                        dtype=torch.int32, **kw)
     q = torch.randint(-span, span + 1, (q_pad, d_pad), dtype=torch.int8,
                       **kw)
-    before = tbi.bucket_scan_i8.LAUNCHES
+    before = COUNTERS["scan.launches.int8"]
     scores, ids = tbi.bucket_scan_i8(vn, vb, q, m=m)
-    assert tbi.bucket_scan_i8.LAUNCHES == before + 1
+    assert COUNTERS["scan.launches.int8"] == before + 1
     want_s, want_b = tbi.bucket_scan_i8_reference(vn, vb, q, m=m)
     assert torch.equal(scores, want_s)
     assert torch.equal(ids, want_b)
@@ -195,9 +197,9 @@ def _exact_bf16(g, dev, nb, d_pad, block, q_pad):
 def test_bf16_kernel_full_scan_on_card(cuda_device, d_pad, q_pad, m):
     g = torch.Generator(device=cuda_device).manual_seed(5)
     vn, vb, q = _exact_bf16(g, cuda_device, 5, d_pad, 1024, q_pad)
-    before = tbs.bucket_scan.LAUNCHES
+    before = COUNTERS["scan.launches.bf16"]
     got = tbs.bucket_scan(vn, vb, q, m=m, bits=3)
-    assert tbs.bucket_scan.LAUNCHES == before + 1
+    assert COUNTERS["scan.launches.bf16"] == before + 1
     assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, m=m, bits=3))
 
 
@@ -271,9 +273,9 @@ def _exact_int8f(g, dev, nb, d_pad, block, q_pad):
 def test_int8f_kernel_full_scan_on_card(cuda_device, d_pad, q_pad, m):
     g = torch.Generator(device=cuda_device).manual_seed(8)
     vn, vb, q = _exact_int8f(g, cuda_device, 5, d_pad, 1024, q_pad)
-    before = tbs.bucket_scan.LAUNCHES_INT8F
+    before = COUNTERS["scan.launches.int8f"]
     got = tbs.bucket_scan(vn, vb, q, m=m, bits=3)
-    assert tbs.bucket_scan.LAUNCHES_INT8F == before + 1
+    assert COUNTERS["scan.launches.int8f"] == before + 1
     assert torch.equal(got, tbs.bucket_scan_reference(vn, vb, q, m=m, bits=3))
 
 
@@ -484,9 +486,9 @@ def test_chunked_pinned_pipeline_equals_sequential_on_card(chunked_96,
         got = {}
         for flag in ("1", "0"):
             monkeypatch.setenv("VDB_PIN_PIPELINE", flag)
-            before = tbs.bucket_scan.LAUNCHES
+            before = COUNTERS["scan.launches.bf16"]
             got[flag] = [index.knn(q, k=10, **mode) for mode in modes]
-            assert tbs.bucket_scan.LAUNCHES == before + 6
+            assert COUNTERS["scan.launches.bf16"] == before + 6
         for a, b, s in zip(got["1"], got["0"], streamed):
             for x, y, z in zip(a, b, s):
                 np.testing.assert_array_equal(x, y)
@@ -604,10 +606,10 @@ def test_sharded_scan_equals_single_device_scan_on_card(nccl_mesh, probes):
     x, q = _clustered_96(torch.device("cuda"), 1_000_000, 20)
     ids = torch.randperm(x.shape[0], device=x.device).to(torch.int32)
     db = pack_database_sharded(x, nccl_mesh, buckets=4096, orig_rows=ids)
-    before = bs.bucket_scan.LAUNCHES
+    before = COUNTERS["scan.launches.bf16"]
     got_r, got_d = sharded_scan_knn(db, q, k=10, q_tile=256, probes=probes)
     torch.cuda.synchronize()
-    assert bs.bucket_scan.LAUNCHES > before
+    assert COUNTERS["scan.launches.bf16"] > before
     r, d = pallas_scan_knn_packed(pack_database(x, buckets=4096), q, k=10,
                                   q_tile=256, probes=probes)
     assert torch.equal(got_r, torch.where(r >= 0, ids[r.clamp(min=0)].long(),
@@ -653,6 +655,30 @@ def test_host_loop_build_gives_one_tree_per_input_on_card(cuda_device):
     a = build_index(x, leaf_size=16)
     b = build_index(x, leaf_size=16)
     _same_index(a, b)
+
+
+@pytest.mark.cuda
+def test_build_stats_times_the_levels_on_the_card(cuda_device):
+    """``BuildStats`` marks each level with a CUDA event: the fused
+    build's levels (all but the pass after the last call) add up to
+    within 10% of the whole build timed with events around it."""
+    from vector_database_tpu_torch import build_index_fused
+    from vector_database_tpu_torch.utils.profiling import BuildStats
+
+    x, _ = _clustered_96(cuda_device, 1_000_000, 23)
+    build_index_fused(x, leaf_size=4)  # warm
+    torch.cuda.synchronize()
+    stats = BuildStats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    index = build_index_fused(x, leaf_size=4, progress=stats)
+    end.record()
+    end.synchronize()
+    whole = start.elapsed_time(end) / 1e3
+    assert len(stats.levels) == index.depth
+    assert all(s.seconds > 0 for s in stats.levels[1:])
+    assert abs(stats.total_seconds - whole) <= 0.1 * whole, (
+        stats.total_seconds, whole)
 
 
 @pytest.mark.cuda
@@ -739,7 +765,7 @@ def _harness_lines(name, argv):
 def test_recall_qps_harness_on_card(cuda_device):
     """``recall_qps`` at 100k x 96 on the card: the packed scan's recall@10
     against the exact oracle, and the kernel launched."""
-    tbs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     lines = _harness_lines("recall_qps", ["--n", "100000", "--q", "1024",
                                           "--reps", "2", "--probes", "8"])
     report = lines[-1]
@@ -750,7 +776,7 @@ def test_recall_qps_harness_on_card(cuda_device):
     assert report["scan_bf16_recall"] >= 0.95, report
     assert report["pallas_qps"] > 0 and report["build_vps"] > 0
     assert lines[1]["probes"]["probes"] == 8
-    assert tbs.bucket_scan.LAUNCHES > 0
+    assert COUNTERS["scan.launches.bf16"] > 0
 
 
 @pytest.mark.cuda
@@ -804,7 +830,7 @@ def test_headline_bench_on_card(cuda_device):
 
     from vector_database_tpu_torch import bench
 
-    tbs.bucket_scan.LAUNCHES = 0
+    COUNTERS["scan.launches.bf16"] = 0
     rows, out = {}, io.StringIO()
     with contextlib.redirect_stdout(out):
         ret = bench.main(env=dict(VDB_BENCH_N="200000", VDB_BENCH_Q="1024",
@@ -819,4 +845,4 @@ def test_headline_bench_on_card(cuda_device):
                             ("sharded_pruned", f"pruned_{p}")):
         for got, want in zip(rows[sharded], rows[single]):
             assert torch.equal(got, want), sharded
-    assert tbs.bucket_scan.LAUNCHES > 0
+    assert COUNTERS["scan.launches.bf16"] > 0

@@ -38,6 +38,7 @@ from vector_database_tpu_torch import PackedServer
 from vector_database_tpu_torch.ops import bucket_scan as tbs
 from vector_database_tpu_torch.ops import bucket_scan_i8 as tbi
 from vector_database_tpu_torch.ops import packed_knn as tpk
+from vector_database_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(2)
 
@@ -242,10 +243,10 @@ def test_i8_wrapper_uses_plain_version_only_on_cpu():
     vb = torch.zeros((2, 256, 32), dtype=torch.int8)
     vn = torch.zeros((2, 1, 256), dtype=torch.int32)
     q = torch.zeros((8, 32), dtype=torch.int8)
-    before = tbi.bucket_scan_i8.LAUNCHES
+    before = COUNTERS["scan.launches.int8"]
     scores, ids = tbi.bucket_scan_i8(vn, vb, q, m=128)
     assert scores.shape == ids.shape == (8, 128)
-    assert tbi.bucket_scan_i8.LAUNCHES == before
+    assert COUNTERS["scan.launches.int8"] == before
     with pytest.raises(RuntimeError, match="no kernel"):
         tbi.bucket_scan_i8(vn.to("meta"), vb.to("meta"), q.to("meta"), m=128)
     with pytest.raises(TypeError, match="int8"):

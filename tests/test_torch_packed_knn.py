@@ -29,6 +29,7 @@ from vector_database_tpu.ops import pallas_knn as jpk
 from vector_database_tpu_torch.ops import bucket_scan as tbs
 from vector_database_tpu_torch.ops import packed_knn as tpk
 from vector_database_tpu_torch.utils import datasets
+from vector_database_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(2)
 
@@ -317,10 +318,10 @@ def test_wrapper_uses_plain_version_only_on_cpu():
     vb = torch.zeros((2, 16, 256), dtype=torch.bfloat16)
     vn = torch.zeros((2, 1, 256))
     q = torch.zeros((8, 16), dtype=torch.bfloat16)
-    before = tbs.bucket_scan.LAUNCHES
+    before = COUNTERS["scan.launches.bf16"]
     out = tbs.bucket_scan(vn, vb, q, m=128, bits=1)
     assert out.shape == (8, 128)
-    assert tbs.bucket_scan.LAUNCHES == before  # no kernel launch counted
+    assert COUNTERS["scan.launches.bf16"] == before  # no kernel launch counted
     with pytest.raises(RuntimeError, match="no kernel"):
         tbs.bucket_scan(vn.to("meta"), vb.to("meta"), q.to("meta"), m=128,
                         bits=1)

@@ -30,6 +30,7 @@ from vector_database_tpu_torch.ops.sorted_build import (
     segment_capacity,
     sorted_build,
 )
+from vector_database_tpu_torch.utils.profiling import spanned
 
 
 def _mesh_block(vectors, mesh, axis: str, dim_axis: Optional[str]):
@@ -239,6 +240,7 @@ def _finalize(vectors, leaf_of_point, num_nodes: int):
             order.to(torch.int32))
 
 
+@spanned("vdb_torch.build")
 def build_index_fused(
     vectors,
     *,

@@ -20,8 +20,8 @@ boundary too, so where a block's slices do not (``slices_aligned``: m =
 125 in blocks of 1000, say) the wrapper scans a copy laid out in slices
 of ``row_pitch(m)`` columns (``pad_slices``). On a CPU tensor the wrapper runs
 ``bucket_scan_reference``, the plain torch loop with the same arguments.
-``bucket_scan.LAUNCHES`` counts the launches on bf16 blocks,
-``bucket_scan.LAUNCHES_INT8F`` those on int8 blocks.
+``utils/profiling.COUNTERS`` counts the launches on bf16 blocks
+(``scan.launches.bf16``) and on int8 blocks (``scan.launches.int8f``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from vector_database_tpu_torch.ops import cuda_build
+from vector_database_tpu_torch.utils.profiling import COUNTERS
 
 MAX_STAGES = 8  # vb tiles in flight in the kernel's ring
 MIN_STAGES = 4
@@ -314,12 +315,6 @@ def bucket_scan(vn, vb, q, *, m, bits, bmap=None, nprobe=None, q_tile=None):
         *ptrs, *shape, plan.nq, plan.kc, plan.stages, esize, stream)
     if err:
         raise RuntimeError(f"bucket_scan launch failed: CUDA error {err}")
-    if esize == 2:
-        bucket_scan.LAUNCHES += 1
-    else:
-        bucket_scan.LAUNCHES_INT8F += 1
+    COUNTERS["scan.launches.bf16" if esize == 2
+             else "scan.launches.int8f"] += 1
     return out
-
-
-bucket_scan.LAUNCHES = 0
-bucket_scan.LAUNCHES_INT8F = 0

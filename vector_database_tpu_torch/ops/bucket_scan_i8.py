@@ -20,7 +20,8 @@ that divides ``block`` (slices whose norms do not start on 16-byte
 boundaries are scanned from a copy laid out in aligned slices, as in
 ``bucket_scan``). On a CPU tensor the wrapper runs
 ``bucket_scan_i8_reference``, the plain torch loop with the same
-arguments. ``bucket_scan_i8.LAUNCHES`` counts the kernel's launches.
+arguments. ``utils/profiling.COUNTERS["scan.launches.int8"]`` counts
+the kernel's launches.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from vector_database_tpu_torch.ops.bucket_scan import (
     slices_aligned,
 )
 from vector_database_tpu_torch.ops.exact import full_f32
+from vector_database_tpu_torch.utils.profiling import COUNTERS
 
 # An f32 product of int8-valued operands is exact while every partial sum
 # stays below 2^24: 1024 * 127^2 < 2^24.
@@ -156,8 +158,5 @@ def bucket_scan_i8(vn, vb, q, *, m):
     )
     if err:
         raise RuntimeError(f"bucket_scan_i8 launch failed: CUDA error {err}")
-    bucket_scan_i8.LAUNCHES += 1
+    COUNTERS["scan.launches.int8"] += 1
     return scores, ids
-
-
-bucket_scan_i8.LAUNCHES = 0

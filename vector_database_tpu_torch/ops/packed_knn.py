@@ -65,6 +65,7 @@ from vector_database_tpu_torch.ops.exact import (
     normalize_rows,
 )
 from vector_database_tpu_torch.utils.device import resolve_device
+from vector_database_tpu_torch.utils.profiling import span, spanned
 
 
 def _round_up(x: int, m: int) -> int:
@@ -296,6 +297,7 @@ def _pack_blockwise(vectors, *, block, d_align, n_valid, cell, body,
     return vb, vn, cent.reshape(nb * cpb, d), rad.reshape(nb * cpb)
 
 
+@spanned("vdb_torch.pack")
 def pack_database(
     vectors,
     *,
@@ -383,6 +385,7 @@ def pack_database(
     )
 
 
+@spanned("vdb_torch.knn.block_map")
 def _block_map(pack: PackedDB, queries, *, q_tile: int, probes: int):
     """Pruned-mode block selection: ``(order, bmap)``. ``order`` sorts the
     queries so tile-mates want the same blocks; ``bmap [tiles, probes]``
@@ -439,6 +442,7 @@ def _scan_queries(pack: PackedDB, qp: torch.Tensor) -> torch.Tensor:
     return (qp * torch.tensor(2.0 / pack.sq, **f32)).to(torch.bfloat16)
 
 
+@spanned("vdb_torch.knn.shortlist")
 def _shortlist_rows(
     pack: PackedDB,
     queries: torch.Tensor,  # [Q, D] float32, already metric-normalized
@@ -503,14 +507,16 @@ def _shortlist_rows(
     qs = _scan_queries(pack, qp)
     if pure_i8:
         # exact integer scores; the block ids come from their own output
-        scores, ids = bucket_scan_i8(pack.vn, pack.vb, qs, m=m)
+        with span("vdb_torch.knn.scan"):
+            scores, ids = bucket_scan_i8(pack.vn, pack.vb, qs, m=m)
         pos = torch.sort(scores[:q], dim=1, stable=True).indices[:, :k_scan]
         blk = ids[:q].gather(1, pos).to(torch.int64)
     else:
-        acc = bucket_scan(
-            pack.vn, pack.vb, qs, m=m, bits=bits, bmap=bmap, nprobe=nprobe,
-            q_tile=q_tile if bmap is not None else None,
-        )
+        with span("vdb_torch.knn.scan"):
+            acc = bucket_scan(
+                pack.vn, pack.vb, qs, m=m, bits=bits, bmap=bmap,
+                nprobe=nprobe, q_tile=q_tile if bmap is not None else None,
+            )
         vals, pos = torch.sort(acc[:q], dim=1, stable=True)
         vals, pos = vals[:, :k_scan], pos[:, :k_scan]
         # the winning block id rides the low mantissa bits of the score
@@ -542,11 +548,19 @@ def _scan_knn_packed_impl(
     queries = atleast_2d(as_f32(queries, pack.device))
     if pack.metric == "cosine":
         queries = normalize_rows(queries)
-    n = pack.n
     short_rows = _shortlist_rows(
         pack, queries, k=k, q_tile=q_tile, oversample=oversample,
         probes=probes, probes_max=probes_max,
     )
+    return _rerank(pack, queries, short_rows, k=k, row_mask=row_mask)
+
+
+@spanned("vdb_torch.knn.rerank")
+def _rerank(pack: PackedDB, queries, short_rows, *, k: int, row_mask=None):
+    """The exact f32 rerank of the shortlist ``short_rows`` ``[Q, S]``:
+    ``(rows [Q, k], sq_dists [Q, k])`` as ``_scan_knn_packed_impl``
+    returns them."""
+    n = pack.n
     safe = short_rows.clamp(0, n - 1)
     cand = pack.vectors[safe]  # [Q, S, D]
     if pack.metric == "ip":

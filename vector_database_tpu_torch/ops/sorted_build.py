@@ -56,6 +56,7 @@ from vector_database_tpu_torch.ops.collectives import (
     all_reduce,
     exclusive_prefix,
 )
+from vector_database_tpu_torch.utils.profiling import span
 
 # dimensions per prefix-scan pass: bounds the [chunk, N/k] transients
 _D_CHUNK = 128
@@ -167,171 +168,194 @@ def sorted_build(
                                                    device=dev))
 
     while s_live > 0 and level < max_levels:
-        if s_live > s_max or node_base + s_live > m_max:
-            raise RuntimeError("segment capacity exceeded")
-        active = pseg >= 0
-        ps = torch.where(active, pseg, 0)
-        ends = seg_start + seg_cnt
-        g_cnt = psum(seg_cnt)  # global per-segment count
-        if progress_cb is not None:
-            progress_cb(level, s_live, int(g_cnt.sum()))
+        with span("vdb_torch.build.level"):
+            if s_live > s_max or node_base + s_live > m_max:
+                raise RuntimeError("segment capacity exceeded")
+            active = pseg >= 0
+            ps = torch.where(active, pseg, 0)
+            ends = seg_start + seg_cnt
+            g_cnt = psum(seg_cnt)  # global per-segment count
+            if progress_cb is not None:
+                progress_cb(level, s_live, int(g_cnt.sum()))
 
-        # --- phase 1: split dimension from (optionally subsampled)
-        # segment moments via prefix-sum differences. Subsampling (every
-        # k-th row) only ranks dimensions; the plane itself is exact.
-        k = stats_subsample
-        xs = pvec[::k]
-        n_before = lambda idx: (idx + (k - 1)) // k  # samples before idx
-        s_lo, s_hi = n_before(seg_start), n_before(ends)
-        sums_c, sumsq_c = [], []
-        for c0 in range(0, d, _D_CHUNK):
-            # scan along the last dim: [chunk, ns] rows scan in parallel
-            xc = xs[:, c0 : c0 + _D_CHUNK].T
-            pre = prefix_sum(xc)
-            sums_c.append(at(pre, s_hi) - at(pre, s_lo))
-            pre = prefix_sum(xc * xc)
-            sumsq_c.append(at(pre, s_hi) - at(pre, s_lo))
-            del pre, xc
-        sums = psum(torch.cat(sums_c, dim=0)).T  # [S, D]
-        sumsq = psum(torch.cat(sumsq_c, dim=0)).T
+            with span("vdb_torch.build.moments"):
+                # --- phase 1: split dimension from (optionally
+                # subsampled) segment moments via prefix-sum differences.
+                # Subsampling (every k-th row) only ranks dimensions; the
+                # plane itself is exact.
+                k = stats_subsample
+                xs = pvec[::k]
+                # samples before idx
+                n_before = lambda idx: (idx + (k - 1)) // k
+                s_lo, s_hi = n_before(seg_start), n_before(ends)
+                sums_c, sumsq_c = [], []
+                for c0 in range(0, d, _D_CHUNK):
+                    # scan along the last dim: [chunk, ns] rows scan in
+                    # parallel
+                    xc = xs[:, c0 : c0 + _D_CHUNK].T
+                    pre = prefix_sum(xc)
+                    sums_c.append(at(pre, s_hi) - at(pre, s_lo))
+                    pre = prefix_sum(xc * xc)
+                    sumsq_c.append(at(pre, s_hi) - at(pre, s_lo))
+                    del pre, xc
+                sums = psum(torch.cat(sums_c, dim=0)).T  # [S, D]
+                sumsq = psum(torch.cat(sumsq_c, dim=0)).T
 
-        cnt_f = torch.clamp(g_cnt, min=1).to(torch.float32)
-        cnt_sub = psum(s_hi - s_lo)
-        cnt_sub_f = torch.clamp(cnt_sub, min=1).to(torch.float32)
-        mean_sub = sums / cnt_sub_f[:, None]
-        # XLA evaluates ``sumsq - (cnt * mean) * mean`` as one fused
-        # multiply-subtract (a single rounding); the f64 product of two
-        # f32 values is exact, so this rounds the same way and dimension
-        # ranking ties break as in the JAX build
-        cm = (cnt_sub_f[:, None] * mean_sub).double()
-        m2 = torch.clamp(
-            (sumsq.double() - cm * mean_sub.double()).float(), min=0.0
-        )
+                cnt_f = torch.clamp(g_cnt, min=1).to(torch.float32)
+                cnt_sub = psum(s_hi - s_lo)
+                cnt_sub_f = torch.clamp(cnt_sub, min=1).to(torch.float32)
+                mean_sub = sums / cnt_sub_f[:, None]
+                # XLA evaluates ``sumsq - (cnt * mean) * mean`` as one
+                # fused multiply-subtract (a single rounding); the f64
+                # product of two f32 values is exact, so this rounds the
+                # same way and dimension ranking ties break as in the JAX
+                # build
+                cm = (cnt_sub_f[:, None] * mean_sub).double()
+                m2 = torch.clamp(
+                    (sumsq.double() - cm * mean_sub.double()).float(),
+                    min=0.0,
+                )
 
-        # alternating max/min variance by level parity; first on ties
-        split_dim = (torch.argmax(m2, dim=1) if use_max
-                     else torch.argmin(m2, dim=1))
-        degenerate = (m2.gather(1, split_dim[:, None])[:, 0] == 0.0) | (
-            cnt_sub == 0
-        )
-        is_int = (g_cnt > leaf_size) & (level < max_levels - 1)
-        # global rank of this shard's first row in each segment
-        ex_cnt = None if group is None else exclusive_prefix(seg_cnt, group)
+                # alternating max/min variance by level parity; first on
+                # ties
+                split_dim = (torch.argmax(m2, dim=1) if use_max
+                             else torch.argmin(m2, dim=1))
+                degenerate = (
+                    m2.gather(1, split_dim[:, None])[:, 0] == 0.0
+                ) | (cnt_sub == 0)
+                is_int = (g_cnt > leaf_size) & (level < max_levels - 1)
+                # global rank of this shard's first row in each segment
+                ex_cnt = (None if group is None
+                          else exclusive_prefix(seg_cnt, group))
 
-        p_dim = split_dim[ps]
-        p_start = seg_start[ps]
-        p_gcnt = g_cnt[ps]
-        if mean_id_ties:
-            # floor(sum_ids / count) per segment from one int64 prefix sum
-            # of the active rows' ids (exact: sums stay below 2^60)
-            ic = torch.cumsum(torch.where(active, pid, 0), dim=0)
-            mean_id = torch.div(psum(at(ic, ends) - at(ic, seg_start)),
-                                torch.clamp(g_cnt, min=1),
-                                rounding_mode="floor")
+            with span("vdb_torch.build.plane"):
+                p_dim = split_dim[ps]
+                p_start = seg_start[ps]
+                p_gcnt = g_cnt[ps]
+                if mean_id_ties:
+                    # floor(sum_ids / count) per segment from one int64
+                    # prefix sum of the active rows' ids (exact: sums stay
+                    # below 2^60)
+                    ic = torch.cumsum(torch.where(active, pid, 0), dim=0)
+                    mean_id = torch.div(
+                        psum(at(ic, ends) - at(ic, seg_start)),
+                        torch.clamp(g_cnt, min=1), rounding_mode="floor")
 
-        # --- phase 2: per-row split value and the exact split plane (one
-        # [N] prefix sum of the chosen column)
-        value = pvec.gather(1, p_dim[:, None])[:, 0]
-        vc = prefix_sum(torch.where(active, value, 0.0))
-        mid = psum(at(vc, ends) - at(vc, seg_start)) / cnt_f
-        p_mid = mid[ps]
+                # --- phase 2: per-row split value and the exact split
+                # plane (one [N] prefix sum of the chosen column)
+                value = pvec.gather(1, p_dim[:, None])[:, 0]
+                vc = prefix_sum(torch.where(active, value, 0.0))
+                mid = psum(at(vc, ends) - at(vc, seg_start)) / cnt_f
+                p_mid = mid[ps]
 
-        local_rank = pos - p_start
-        if mean_id_ties:
-            tie_high = pid > mean_id[ps]
-        else:
-            # positional ties: lows get the first ceil(cnt/2) ranks of
-            # the segment, counted over every shard
-            g_rank = local_rank if ex_cnt is None else local_rank + ex_cnt[ps]
-            tie_high = 2 * g_rank >= p_gcnt + (p_gcnt & 1)
-        normal_high = (value > p_mid) | ((value == p_mid) & tie_high)
+                local_rank = pos - p_start
+                if mean_id_ties:
+                    tie_high = pid > mean_id[ps]
+                else:
+                    # positional ties: lows get the first ceil(cnt/2)
+                    # ranks of the segment, counted over every shard
+                    g_rank = (local_rank if ex_cnt is None
+                              else local_rank + ex_cnt[ps])
+                    tie_high = 2 * g_rank >= p_gcnt + (p_gcnt & 1)
+                normal_high = (value > p_mid) | (
+                    (value == p_mid) & tie_high)
 
-        is_low_n = active & ~normal_high
-        cl = torch.cumsum(is_low_n.to(torch.int64), dim=0)
-        cl_lo = at(cl, seg_start)
-        lo_cnt = at(cl, ends) - cl_lo
-        # zero-progress guard (fp edge: every row on one side) -> forced
-        # tie partition, like a degenerate segment
-        g_lo = psum(lo_cnt)
-        stuck = is_int & ((g_lo == 0) | (g_lo == g_cnt))
-        degen_split = degenerate | stuck
-        if mean_id_ties:
-            # tie-partitioned segments split purely by id: recount lows
-            cli = torch.cumsum((active & ~tie_high).to(torch.int64), dim=0)
-            cli_lo = at(cli, seg_start)
-            lo_cnt = torch.where(degen_split, at(cli, ends) - cli_lo, lo_cnt)
-        else:
-            # a rank split moves no rows: this shard's lows are its part
-            # of the segment's first ceil(cnt/2) global ranks
-            half = (g_cnt + 1) // 2
-            if ex_cnt is not None:
-                half = torch.minimum(torch.clamp(half - ex_cnt, min=0),
-                                     seg_cnt)
-            lo_cnt = torch.where(degen_split, half, lo_cnt)
+                is_low_n = active & ~normal_high
+                cl = torch.cumsum(is_low_n.to(torch.int64), dim=0)
+                cl_lo = at(cl, seg_start)
+                lo_cnt = at(cl, ends) - cl_lo
+                # zero-progress guard (fp edge: every row on one side) ->
+                # forced tie partition, like a degenerate segment
+                g_lo = psum(lo_cnt)
+                stuck = is_int & ((g_lo == 0) | (g_lo == g_cnt))
+                degen_split = degenerate | stuck
+                if mean_id_ties:
+                    # tie-partitioned segments split purely by id: recount
+                    # lows
+                    cli = torch.cumsum((active & ~tie_high).to(torch.int64),
+                                       dim=0)
+                    cli_lo = at(cli, seg_start)
+                    lo_cnt = torch.where(degen_split,
+                                         at(cli, ends) - cli_lo, lo_cnt)
+                else:
+                    # a rank split moves no rows: this shard's lows are its
+                    # part of the segment's first ceil(cnt/2) global ranks
+                    half = (g_cnt + 1) // 2
+                    if ex_cnt is not None:
+                        half = torch.minimum(
+                            torch.clamp(half - ex_cnt, min=0), seg_cnt)
+                    lo_cnt = torch.where(degen_split, half, lo_cnt)
 
-        # --- child numbering and boundaries
-        ii = is_int.to(torch.int64)
-        rank = torch.cumsum(ii, dim=0) - ii
-        num_internal = int(ii.sum())  # the level's one host sync
-        next_base = node_base + s_live
-        # children of internal segment r land at 2r, 2r+1; leaves write
-        # into a dropped slot past the end
-        tgt = torch.where(is_int, 2 * rank, 2 * num_internal)
-        new_start = torch.zeros(2 * num_internal + 2, **i64)
-        new_cnt = torch.zeros(2 * num_internal + 2, **i64)
-        new_start[tgt] = seg_start
-        new_start[tgt + 1] = seg_start + lo_cnt
-        new_cnt[tgt] = lo_cnt
-        new_cnt[tgt + 1] = seg_cnt - lo_cnt
-        new_start = new_start[: 2 * num_internal]
-        new_cnt = new_cnt[: 2 * num_internal]
+            # --- child numbering and boundaries
+            ii = is_int.to(torch.int64)
+            rank = torch.cumsum(ii, dim=0) - ii
+            with span("vdb_torch.build.sync"):
+                num_internal = int(ii.sum())  # the level's one host sync
+            with span("vdb_torch.build.partition"):
+                next_base = node_base + s_live
+                # children of internal segment r land at 2r, 2r+1; leaves
+                # write into a dropped slot past the end
+                tgt = torch.where(is_int, 2 * rank, 2 * num_internal)
+                new_start = torch.zeros(2 * num_internal + 2, **i64)
+                new_cnt = torch.zeros(2 * num_internal + 2, **i64)
+                new_start[tgt] = seg_start
+                new_start[tgt + 1] = seg_start + lo_cnt
+                new_cnt[tgt] = lo_cnt
+                new_cnt[tgt + 1] = seg_cnt - lo_cnt
+                new_start = new_start[: 2 * num_internal]
+                new_cnt = new_cnt[: 2 * num_internal]
 
-        # --- this level's node block. Tie-partitioned nodes store dim -2:
-        # no plane separates their children, the search descends both.
-        node_dim = torch.where(degen_split, -2, split_dim)
-        blocks.append((
-            torch.where(is_int, node_dim, -1),
-            torch.where(is_int & ~degen_split, mid, 0.0),
-            torch.where(is_int, next_base + 2 * rank, -1),
-            torch.where(is_int, next_base + 2 * rank + 1, -1),
-            # leaves record their (start, count): rows never move again
-            torch.where(is_int, 0, seg_start),
-            torch.where(is_int, 0, seg_cnt),
-        ))
+                # --- this level's node block. Tie-partitioned nodes store
+                # dim -2: no plane separates their children, the search
+                # descends both.
+                node_dim = torch.where(degen_split, -2, split_dim)
+                blocks.append((
+                    torch.where(is_int, node_dim, -1),
+                    torch.where(is_int & ~degen_split, mid, 0.0),
+                    torch.where(is_int, next_base + 2 * rank, -1),
+                    torch.where(is_int, next_base + 2 * rank + 1, -1),
+                    # leaves record their (start, count): rows never move
+                    # again
+                    torch.where(is_int, 0, seg_start),
+                    torch.where(is_int, 0, seg_cnt),
+                ))
 
-        # --- phase 3: stable within-range partition (rank splits move
-        # no rows; id splits move rows like plane splits)
-        p_locnt = lo_cnt[ps]
-        p_degen = degen_split[ps]
-        p_is_int = is_int[ps]
-        p_rank = rank[ps]
-        go_high = torch.where(p_degen, tie_high, normal_high)
-        lows_upto = cl - cl_lo[ps]  # inclusive lows in [start, i]
-        if mean_id_ties:
-            moving = active & p_is_int
-            lows_upto = torch.where(p_degen, cli - cli_lo[ps], lows_upto)
-        else:
-            moving = active & p_is_int & ~p_degen
-        dest_low = p_start + lows_upto - 1
-        dest_high = p_start + p_locnt + local_rank - lows_upto
-        dest = torch.where(moving, torch.where(go_high, dest_high, dest_low),
-                           pos)
-        src = torch.empty_like(pos)
-        src[dest] = pos  # invert the (unique-index) permutation
+                # --- phase 3: stable within-range partition (rank splits
+                # move no rows; id splits move rows like plane splits)
+                p_locnt = lo_cnt[ps]
+                p_degen = degen_split[ps]
+                p_is_int = is_int[ps]
+                p_rank = rank[ps]
+                go_high = torch.where(p_degen, tie_high, normal_high)
+                lows_upto = cl - cl_lo[ps]  # inclusive lows in [start, i]
+                if mean_id_ties:
+                    moving = active & p_is_int
+                    lows_upto = torch.where(p_degen, cli - cli_lo[ps],
+                                            lows_upto)
+                else:
+                    moving = active & p_is_int & ~p_degen
+                dest_low = p_start + lows_upto - 1
+                dest_high = p_start + p_locnt + local_rank - lows_upto
+                dest = torch.where(
+                    moving, torch.where(go_high, dest_high, dest_low), pos)
+                src = torch.empty_like(pos)
+                src[dest] = pos  # invert the (unique-index) permutation
 
-        new_seg = torch.where(active & p_is_int,
-                              2 * p_rank + go_high.to(torch.int64), -1)
-        new_leaf = torch.where(active & ~p_is_int, node_base + ps, pleaf)
-        pvec = pvec[src]
-        pid, pseg, pleaf = pid[src], new_seg[src], new_leaf[src]
-        seg_start, seg_cnt = new_start, new_cnt
+                new_seg = torch.where(
+                    active & p_is_int, 2 * p_rank + go_high.to(torch.int64),
+                    -1)
+                new_leaf = torch.where(active & ~p_is_int, node_base + ps,
+                                       pleaf)
+                pvec = pvec[src]
+                pid, pseg, pleaf = pid[src], new_seg[src], new_leaf[src]
+                seg_start, seg_cnt = new_start, new_cnt
 
-        node_base = next_base
-        s_live = 2 * num_internal
-        # "alternate": the reference's max/min parity rule; "max":
-        # max-variance every level
-        use_max = use_max if split == "max" else not use_max
-        level += 1
+            node_base = next_base
+            s_live = 2 * num_internal
+            # "alternate": the reference's max/min parity rule; "max":
+            # max-variance every level
+            use_max = use_max if split == "max" else not use_max
+            level += 1
 
     if s_live > 0:
         # depth-cap exit: still-live segments retire as oversized leaves

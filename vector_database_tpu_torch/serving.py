@@ -21,6 +21,7 @@ from vector_database_tpu_torch.ops.packed_knn import (
     pallas_scan_knn_packed_rt,
 )
 from vector_database_tpu_torch.parallel.scan import sharded_scan_knn
+from vector_database_tpu_torch.utils.profiling import COUNTERS, span, spanned
 
 
 class PackedServer:
@@ -157,27 +158,33 @@ class PackedServer:
         if self._min_probe_batch is not None and self._min_probe_batch > 1:
             self.query(torch.zeros((1, d), device=dev))
 
+    @spanned("vdb_torch.serve.query")
     def query(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
         """k-NN for any number of queries at one wave shape: ``(rows
         [Q, k], scores [Q, k])`` on the pack's device: squared distances
-        (l2/cosine) or exact dots, highest first (ip)."""
+        (l2/cosine) or exact dots, highest first (ip). Each wave is a
+        ``vdb_torch.serve.wave`` span and counts its real queries and its
+        ``batch`` slots (``serve.queries``, ``serve.slots``)."""
         queries = atleast_2d(as_f32(queries, self._pack.device))
         q = queries.shape[0]
         rows_out, d_out = [], []
         for lo in range(0, q, self._batch):
-            tile = queries[lo : lo + self._batch]
-            real = tile.shape[0]
-            if real < self._batch:
-                tile = torch.nn.functional.pad(
-                    tile, (0, 0, 0, self._batch - real)
+            with span("vdb_torch.serve.wave"):
+                tile = queries[lo : lo + self._batch]
+                real = tile.shape[0]
+                COUNTERS["serve.queries"] += real
+                COUNTERS["serve.slots"] += self._batch
+                if real < self._batch:
+                    tile = torch.nn.functional.pad(
+                        tile, (0, 0, 0, self._batch - real)
+                    )
+                pruned = self._probes is not None and (
+                    self._min_probe_batch is None
+                    or real >= self._min_probe_batch
                 )
-            pruned = self._probes is not None and (
-                self._min_probe_batch is None
-                or real >= self._min_probe_batch
-            )
-            r, d2 = self._serve(tile, pruned)
-            rows_out.append(r[:real])
-            d_out.append(d2[:real])
+                r, d2 = self._serve(tile, pruned)
+                rows_out.append(r[:real])
+                d_out.append(d2[:real])
         if not rows_out:
             dev = self._pack.device
             return (torch.zeros((0, self._k), dtype=torch.int64, device=dev),

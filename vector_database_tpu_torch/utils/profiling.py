@@ -4,8 +4,14 @@
 The reference's observability is Stopwatch spans and throttled console
 progress (IndexBuilder.cs:43-53, Program.cs:36-52). Here:
 
+- ``span``/``spanned``: a named ``torch.profiler.record_function`` range
+  around a layer of the program while a profiler runs, and nothing
+  otherwise (the program's names start with ``vdb_torch.``);
+- ``COUNTERS``: process-wide counts the serving and scan paths keep
+  always (one integer add a site);
 - ``BuildStats``: per-level build telemetry collected through the
-  builder's progress hook (level, live ranges, active points, wall time);
+  builder's progress hook (level, live ranges, active points, time
+  between callbacks: the card's, from CUDA events, or the host's);
 - ``ProgressLogger``: the reference's throttled progress print;
 - ``trace``: a ``torch.profiler`` trace of the block (host and, where
   there is a card, device timeline), written as a Chrome trace; unlike the
@@ -19,13 +25,54 @@ progress (IndexBuilder.cs:43-53, Program.cs:36-52). Here:
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# Process-wide counts, never reset by the program (readers take
+# differences): the scan kernels' launches by block type, the real
+# queries served and the wave slots they filled (``PackedServer.query``).
+COUNTERS = dict.fromkeys((
+    "scan.launches.bf16",
+    "scan.launches.int8f",
+    "scan.launches.int8",
+    "serve.queries",
+    "serve.slots",
+), 0)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    runs, else one shared no-op context (no ``RecordFunction`` is made:
+    the check is one flag read). The range lies on the profiler's clock,
+    beside the device operations launched inside it."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: the whole call inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 @dataclass
@@ -36,25 +83,53 @@ class LevelStat:
     seconds: float
 
 
-@dataclass
 class BuildStats:
-    """Collects per-level timings via ``build_index_fused(progress=stats)``.
+    """Collects per-level timings via ``progress=stats`` of
+    ``build_index`` or ``build_index_fused``.
 
-    The builder fires ``progress(level, ...)`` AFTER level ``level``'s
-    device pass, so the window since the previous callback is that level's
-    own duration and is recorded on the stat being appended. Level 0's
-    window starts at construction: create the instance immediately before
-    the build or its row absorbs the setup time. Device work is
-    asynchronous, so a level's window is the host's, up to the builder's
-    next synchronising read."""
+    Each callback marks the time, and a level's ``seconds`` is the time
+    from the previous mark (construction, for the first callback) to its
+    own. ``build_index`` calls AFTER level ``level``'s device pass, so the
+    row is that level's own pass; ``build_index_fused`` calls at the START
+    of each level, so its row ``level`` holds the pass of level
+    ``level - 1`` (row 0 the work before the first level), and the last
+    level's pass, after the last call, is in no row. Create the instance
+    immediately before the build.
 
-    levels: List[LevelStat] = field(default_factory=list)
-    _t0: float = field(default_factory=time.time)
+    On a machine with a card a mark is a CUDA event recorded on the
+    current device's current stream, where the build runs: the times are
+    the card's, read once when ``levels`` is read after the build, and
+    the callbacks add no synchronise. Without a card a mark is the host's
+    clock."""
+
+    def __init__(self):
+        self._card = torch.cuda.is_available()
+        self._calls = []  # (level, live, active)
+        self._marks = [self._mark()]
+        self._levels: List[LevelStat] = []
+
+    def _mark(self):
+        if not self._card:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
 
     def __call__(self, level: int, live: int, active: int) -> None:
-        now = time.time()
-        self.levels.append(LevelStat(level, live, active, now - self._t0))
-        self._t0 = now
+        self._calls.append((level, live, active))
+        self._marks.append(self._mark())
+
+    @property
+    def levels(self) -> List[LevelStat]:
+        if len(self._levels) < len(self._calls):
+            marks = self._marks
+            if self._card:
+                marks[-1].synchronize()
+            for i in range(len(self._levels), len(self._calls)):
+                a, b = marks[i], marks[i + 1]
+                sec = (a.elapsed_time(b) / 1e3 if self._card else b - a)
+                self._levels.append(LevelStat(*self._calls[i], sec))
+        return self._levels
 
     @property
     def total_seconds(self) -> float:
