@@ -5,12 +5,13 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the three CUDA sources from ``vector_database_tpu_torch/csrc``
+1. build the four CUDA sources from ``vector_database_tpu_torch/csrc``
    (``bucket_scan_sm90.cu``, the scan of bf16 and int8f packs,
    ``bucket_scan_i8.cu``, the exact int8 scan, and ``probe_kernel_ab.cu``,
-   the A/B probe, all on the Hopper skeleton of ``sm90.cuh``), one
-   ``nvcc`` each, all at once, and say whether the build was cold or found
-   its libraries under ``build/`` already;
+   the A/B probe, all on the Hopper skeleton of ``sm90.cuh``, and
+   ``segment_moments.cu``, the build's segment moments), one ``nvcc``
+   each, all at once, and say whether the build was cold or found its
+   libraries under ``build/`` already;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
@@ -18,8 +19,8 @@ Phases (each raises on failure; nothing is caught):
    same build again on the same input (the node tables must be equal
    field by field), pack (4096 buckets), ``PackedServer`` full scan and
    pruned scans at probes 192/256/320, q=4096, recall@10 against the
-   exact oracle on 1024 queries; the bf16 kernel's launch count must
-   rise;
+   exact oracle on 1024 queries; the segment-moments kernel's launch
+   count must rise by the build's depth, and the bf16 kernel's must rise;
 4. the bf16 kernel against its plain torch version at the main path's
    shapes (full and pruned), with the two bitwise equalities of the
    pruned path (probes = nb equals the full scan; runtime probes equal
@@ -142,6 +143,13 @@ Phases (each raises on failure; nothing is caught):
    (``VDB_BENCH_SHARDED=1``) and ``VDB_BENCH_TIE=mean_id`` legs, each cut
    to BENCH_CUT_N = 1M rows: return value 0 and JAX's key set. No process
    group may be left behind.
+16. the build's segment-moments kernel at the main path's shape (N x D
+   clustered rows, every 4th row sampled), for one segment of every row
+   (a build's first level) and for segments of 17 rows (~590k, the
+   deepest levels): kernel and plain version timed, the bound (bytes read
+   once and written once at the card's memory rate), and each version's
+   largest error against float64 sums in ulps of the segment's sum of
+   |x|; the kernel's launch count must rise with each call.
 
 It prints the card's name and power limit, one JSON line each of the
 main path's, phase 7's, phase 9's, phases 10-11's, phase 12's
@@ -1713,6 +1721,82 @@ BENCH_CUT_N = 1_000_000
 BENCH_BLOCK = 8192  # pack_database's block at 4096 buckets
 
 
+def _moments_phase(dev):
+    """Phase 16: the segment-moments kernel at N x D, k = 4, over one
+    segment of every row and over segments of 17 rows; each case's numbers
+    (kernel, plain and library ms, bound, errors against float64 sums in
+    ulps of the segment's sum of |x|, launches) under its name. Raises
+    where the kernel's error passes the card test's summation-tree bound,
+    (1540 + n_s / 512) ulps, or where on integer-valued rows it differs
+    from the plain version by a bit."""
+    import torch
+
+    from vector_database_tpu_torch.ops import sorted_build as sb
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
+
+    train, _, _, _ = _clustered(dev, N, SEED + 16)
+    k, f64 = 4, dict(dtype=torch.float64, device=dev)
+    xs32 = train[::k]
+    xs = xs32.double()
+    xi = torch.clamp(torch.round(train), -3, 3)
+    out = {}
+    for name, rows in (("one_segment", N), ("rows17", 17)):
+        s = -(-N // rows)
+        start = torch.arange(s, dtype=torch.int64, device=dev) * rows
+        cnt = torch.clamp(N - start, max=rows)
+        before = COUNTERS["build.moments.launches"]
+        k_ms = _ms(lambda: sb.segment_moments(train, start, cnt, k), REPS)
+        launches = COUNTERS["build.moments.launches"] - before
+        if launches != REPS + 1:
+            raise AssertionError(f"{launches} segment-moments launches in "
+                                 f"{REPS + 1} calls")
+        p_ms = _ms(lambda: sb.segment_moments_reference(train, start, cnt,
+                                                        k), REPS)
+        # the segments cover every row, so the samples are xs in order
+        n_s = (start + cnt + k - 1) // k - (start + k - 1) // k
+        seg = torch.repeat_interleave(torch.arange(s, device=dev), n_s)
+        # library yardstick: index_add_ of the f32 samples and their
+        # squares by a segment-id vector made beforehand (float atomics)
+        zeros = torch.zeros((s, D), dtype=torch.float32, device=dev)
+        lib_ms = _ms(lambda: (zeros.clone().index_add_(0, seg, xs32),
+                              zeros.clone().index_add_(0, seg, xs32 * xs32)),
+                     REPS)
+        tol = (1540 + n_s[:, None].double() / 512) * 2.0 ** -24
+        err = {}
+        for label, fn in (("kernel", sb.segment_moments),
+                          ("plain", sb.segment_moments_reference)):
+            got = fn(train, start, cnt, k)
+            for i, v in enumerate((xs, xs * xs)):
+                ref = torch.zeros((s, D), **f64).index_add_(0, seg, v)
+                scale = torch.zeros((s, D), **f64).index_add_(0, seg,
+                                                              v.abs())
+                diff = (got[i].double() - ref).abs()
+                key = f"{label}_{'sum' if i == 0 else 'sumsq'}_err_ulps"
+                err[key] = float((diff / (scale * 2.0 ** -24)).max())
+                if label == "kernel" and not bool((diff <= tol * scale).all()):
+                    raise AssertionError(
+                        f"segment moments {name}: {key} {err[key]} passes "
+                        f"the bound of (1540 + n_s / 512) ulps")
+        got = sb.segment_moments(xi, start, cnt, k)
+        want = sb.segment_moments_reference(xi, start, cnt, k)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"segment moments {name}: the kernel and "
+                                 f"the plain version differ on integer rows")
+        nbytes = int(n_s.sum()) * D * 4 + 2 * s * D * 4 + 2 * s * 8
+        bound_ms = nbytes / PEAK_HBM * 1e3
+        out[name] = dict(segments=s, ms=k_ms, plain_ms=p_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by="bytes",
+                         pct_of_bound=100.0 * bound_ms / k_ms,
+                         launches=launches, integer_rows_equal=True, **err)
+        print(f"[moments] {name}: {s} segments, kernel {k_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({100 * bound_ms / k_ms:.1f}%), "
+              f"plain {p_ms:.3f} ms, library {lib_ms:.3f} ms, errors {err}, "
+              f"integer rows equal")
+    del train, xs, xs32, xi
+    return out
+
+
 def _bench_keys(env, nb):
     """The keys JAX's ``bench.py`` prints for the knobs in ``env`` when the
     serving pack has ``nb`` blocks (one rank: the sharded pack too)."""
@@ -1836,7 +1920,7 @@ def main():
     from vector_database_tpu_torch.benchmarks import probe_kernel_ab as pab
     from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
-    from vector_database_tpu_torch.ops import cuda_build
+    from vector_database_tpu_torch.ops import cuda_build, sorted_build
     from vector_database_tpu_torch.ops.packed_knn import (
         _block_map,
         _scan_queries,
@@ -1855,7 +1939,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     # ---- 1. build -----------------------------------------------------
-    sources = ("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab")
+    sources = ("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab",
+               "segment_moments")
     found = sum(cuda_build.library_path(x).exists() for x in sources)
     start = ("cold (no library in build/)" if found == 0 else
              "cached (every library found in build/)"
@@ -1863,11 +1948,11 @@ def main():
              f"partly cached ({found} of {len(sources)} libraries found)")
     t0 = time.perf_counter()
     cuda_build.build(*sources)
-    for mod in (bs, bi, pab):
+    for mod in (bs, bi, pab, sorted_build):
         mod._load()
     print(f"[build] vector_database_tpu_torch/csrc: bucket_scan_sm90.cu, "
-          f"bucket_scan_i8.cu, probe_kernel_ab.cu (each with sm90.cuh), one "
-          f"nvcc each, {start}: built and loaded in "
+          f"bucket_scan_i8.cu, probe_kernel_ab.cu (each with sm90.cuh), "
+          f"segment_moments.cu, one nvcc each, {start}: built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. exactness where the scan is exact (n <= buckets) ------------
@@ -1888,6 +1973,7 @@ def main():
     torch.cuda.synchronize()
 
     COUNTERS["scan.launches.bf16"] = 0
+    moments0 = COUNTERS["build.moments.launches"]
     t0 = time.perf_counter()
     index = build_index_fused(train, leaf_size=LEAF)
     torch.cuda.synchronize()
@@ -1895,6 +1981,11 @@ def main():
     print(f"[main] build {N}x{D} leaf {LEAF}: {build_s:.3f} s, "
           f"{N / build_s:.1f} vectors/s, depth {index.depth}, "
           f"{index.num_leaves} leaves")
+    build_moments = COUNTERS["build.moments.launches"] - moments0
+    if build_moments != index.depth:
+        raise AssertionError(f"{build_moments} segment-moments launches "
+                             f"in a build of depth {index.depth}")
+    print(f"[main] segment_moments launches in the build: {build_moments}")
     t0 = time.perf_counter()
     again = build_index_fused(train, leaf_size=LEAF)
     torch.cuda.synchronize()
@@ -2269,6 +2360,10 @@ def main():
 
     # ---- 15. the headline bench -----------------------------------------
     bench = _bench_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 16. the build's segment moments --------------------------------
+    moments = _moments_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -2364,6 +2459,13 @@ def main():
         "modes_ms": {r["mode"]: r["ms_per_1024q"] for r in ab},
         "split_q4096_ms": split,
         "m1000_max_abs_err": tail["probe_max_abs_err"],
+    }, {
+        "name": "segment_moments",
+        "route": "cuda",
+        "source": "vector_database_tpu_torch/csrc/segment_moments.cu",
+        "replaces": None,  # the JAX build leaves phase 1 to XLA
+        "build_launches": build_moments,
+        **moments,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

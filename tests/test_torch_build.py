@@ -5,7 +5,8 @@ cannot matter and the node tables must be bitwise equal, under both tie
 rules (``mean_id`` id sums are exact integers on both sides: int32 limbs
 in JAX, one int64 prefix sum in the port). On float data the trees may
 differ in the last ulp of a plane; there the search must equal the exact
-oracle.
+oracle. The plain segment moments (phase 1 on the CPU) hold to float64
+sums within the prefix sum's bound, and to exact sums on integer data.
 """
 
 import numpy as np
@@ -16,8 +17,14 @@ from vector_database_tpu import build_index_fused as jax_build
 from vector_database_tpu.models.bsp import BSPIndex as JaxBSPIndex
 from vector_database_tpu_torch import build_index_fused, exact_ball, search
 from vector_database_tpu_torch.models.bsp import BSPIndex
-from vector_database_tpu_torch.ops.sorted_build import prefix_sum
+from vector_database_tpu_torch.ops.sorted_build import (
+    prefix_sum,
+    segment_moments,
+    segment_moments_reference,
+)
 from vector_database_tpu_torch.utils import datasets
+
+from segment_cases import float64_moments, ragged_segments
 
 torch.set_num_threads(2)
 
@@ -161,3 +168,43 @@ def test_prefix_sum_is_a_fixed_order_cumsum(shape):
     ints = np.rint(x * 100).astype(np.float32)
     np.testing.assert_array_equal(prefix_sum(torch.from_numpy(ints)).numpy(),
                                   np.cumsum(ints.astype(np.float64), axis=-1))
+
+
+@pytest.mark.parametrize("d", [3, 96, 200])
+@pytest.mark.parametrize("k", [1, 4])
+def test_segment_moments_plain_version(k, d):
+    """The plain segment moments against float64 on ragged segments with
+    gaps between them, empty segments and (k = 4) segments that hold no
+    sample. Each sum is the difference of two ``prefix_sum`` values, so its
+    error stays within twice their bound: (1024 + ns / 1024 + 4) ulps of
+    the running sum of |x| up to the segment's end, one more for the
+    rounded squares. On integer-valued data the sums equal ``index_add_``'s
+    bit for bit. The wrapper runs the plain version on CPU tensors and has
+    none for another device."""
+    rng = np.random.default_rng(100 * k + d)
+    n, s = 3000, 60
+    start, cnt = ragged_segments(rng, n, s)
+    st, ct = torch.from_numpy(start), torch.from_numpy(cnt)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    sums, sumsq = segment_moments_reference(x, st, ct, k)
+    assert sums.shape == sumsq.shape == (s, d)
+    ref, ref2, _, n_s = float64_moments(x, start, cnt, k)
+    assert (cnt == 0).any()
+    assert k == 1 or ((n_s.numpy() == 0) & (cnt > 0)).any()
+    ns = -(-n // k)
+    run = torch.cumsum(x[::k].double().abs(), 0)
+    run2 = torch.cumsum(x[::k].double() ** 2, 0)
+    end = torch.clamp(-(-(st + ct) // k) - 1, min=0)
+    ulps = (1024 + ns / 1024 + 4) * 2.0 ** -24
+    assert ((sums.double() - ref).abs() <= 2 * ulps * run[end]).all()
+    assert ((sumsq.double() - ref2).abs() <=
+            2 * (ulps + 2.0 ** -24) * run2[end]).all()
+    assert torch.equal(segment_moments(x, st, ct, k)[0], sums)
+
+    xi = torch.round(x * 3)
+    isums, isumsq = segment_moments_reference(xi, st, ct, k)
+    iref, iref2, _, _ = float64_moments(xi, start, cnt, k)
+    assert torch.equal(isums, iref.float())
+    assert torch.equal(isumsq, iref2.float())
+    with pytest.raises(RuntimeError, match="no kernel"):
+        segment_moments(x.to("meta"), st.to("meta"), ct.to("meta"), k)

@@ -16,7 +16,10 @@ partial tile in the grid's last CTA; int8 blocks of 1000 columns lie in
 rows padded to 16 bytes (``pad_rows``), as ``pack_database`` lays them;
 slices that start off 16-byte boundaries (m 125 or 250 in blocks of
 1000) are scanned from a copy in aligned slices (``pad_slices``).
-Two builds of one input give the same tree, and ``BuildStats``'s
+The build's segment-moments kernel holds to float64 sums within the
+height of its summation tree, gives the same bits on every call, equals
+its plain version on integer data, and runs once a level of a fused
+build. Two builds of one input give the same tree, and ``BuildStats``'s
 CUDA events add up to the build's time within 10%. A ``ChunkedIndex`` of three
 chunks serves pinned, pipelined or not, and streamed, with equal results.
 On ``make_mesh()``, a world of one rank over NCCL, the sharded build and
@@ -42,7 +45,10 @@ import torch
 from vector_database_tpu_torch.benchmarks import probe_kernel_ab as tab
 from vector_database_tpu_torch.ops import bucket_scan as tbs
 from vector_database_tpu_torch.ops import bucket_scan_i8 as tbi
+from vector_database_tpu_torch.ops import sorted_build as tsb
 from vector_database_tpu_torch.utils.profiling import COUNTERS
+
+from segment_cases import float64_moments, ragged_segments
 
 
 @pytest.fixture
@@ -437,6 +443,83 @@ def test_build_gives_one_tree_per_input_on_card(cuda_device):
                               device=cuda_device)]
     x += 0.05 * torch.randn(x.shape, generator=g, device=cuda_device)
     a = build_index_fused(x, leaf_size=16)
+    b = build_index_fused(x, leaf_size=16)
+    assert (a.depth, a.num_leaves) == (b.depth, b.num_leaves)
+    for field in ("dim", "mid", "low", "high", "leaf_start", "leaf_count",
+                  "orig_row"):
+        ta, tb = getattr(a, field), getattr(b, field)
+        assert torch.equal(ta.view(torch.int32), tb.view(torch.int32)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,s,k", [
+    (1_000_000, 96, 1, 4),
+    (1_000_000, 96, 2, 4),
+    (1_000_000, 96, 1000, 4),
+    (1_000_000, 96, 58_823, 4),  # ~17 rows a segment: the deepest levels
+    (20_000, 128, 1, 1),
+    (20_000, 200, 300, 4),
+    (20_000, 2052, 300, 4),  # 1026 float4 columns of partials: two passes
+    (20_000, 515, 300, 1),  # 1030 float columns of partials: two passes
+    (20_000, 3, 300, 1),
+    (5_000, 96, 50, 1),
+    (100, 96, 7, 4),
+])
+def test_segment_moments_kernel_on_card(cuda_device, n, d, s, k):
+    """The segment-moments kernel on ragged segments with gaps, empty
+    segments and segments holding no sample, against float64 sums. Each
+    value reaches its segment's sum through at most 512 additions in its
+    tile, one a later tile's partial and 1025 more in the combine, so the
+    f32 error stays within (1540 + n_s / 512) ulps of the segment's sum of
+    |x| (the bound of a summation tree of that height; the squares, formed
+    in fused multiply-adds, within as many ulps of their sum). A second
+    call gives the same bits. On integer-valued data (squares summing below
+    2^24) it equals the plain version bit for bit."""
+    rng = np.random.default_rng(n + d + s + k)
+    start, cnt = ragged_segments(rng, n, s)
+    st = torch.from_numpy(start).to(cuda_device)
+    ct = torch.from_numpy(cnt).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(s + d)
+    x = torch.randn((n, d), generator=g, device=cuda_device)
+    sums, sumsq = tsb.segment_moments(x, st, ct, k)
+    torch.cuda.synchronize()
+    ref, ref2, abs_sums, n_s = float64_moments(x, start, cnt, k)
+    ulps = (1540 + n_s[:, None] / 512) * 2.0 ** -24
+    assert ((sums.cpu().double() - ref).abs() <= ulps * abs_sums).all()
+    assert ((sumsq.cpu().double() - ref2).abs() <= ulps * ref2).all()
+    again = tsb.segment_moments(x, st, ct, k)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], sumsq)
+
+    xi = torch.clamp(torch.round(x), -3, 3)
+    got = tsb.segment_moments(xi, st, ct, k)
+    want = tsb.segment_moments_reference(xi, st, ct, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_fused_build_launches_the_moments_kernel_once_a_level_on_card(
+        cuda_device):
+    """Every level of a fused build on the card ranks its dimensions with
+    the segment-moments kernel: its launch count rises by the depth."""
+    from vector_database_tpu_torch import build_index_fused
+
+    x, _ = _clustered_96(cuda_device, 1_000_000, 29)
+    before = COUNTERS["build.moments.launches"]
+    index = build_index_fused(x, leaf_size=16)
+    assert COUNTERS["build.moments.launches"] - before == index.depth > 0
+
+
+@pytest.mark.cuda
+def test_fused_build_of_a_transposed_view_on_card(cuda_device):
+    """A view whose columns are not adjacent (a transposed ``[D, N]``
+    tensor) builds the tree that its contiguous copy builds, field by
+    field: the moments kernel reads a copy with adjacent columns."""
+    from vector_database_tpu_torch import build_index_fused
+
+    x, _ = _clustered_96(cuda_device, 200_000, 31)
+    xt = x.T.contiguous().T
+    assert xt.stride(1) != 1
+    a = build_index_fused(xt, leaf_size=16)
     b = build_index_fused(x, leaf_size=16)
     assert (a.depth, a.num_leaves) == (b.depth, b.num_leaves)
     for field in ("dim", "mid", "low", "high", "leaf_start", "leaf_count",

@@ -2,8 +2,8 @@
 ``vector_database_tpu/ops/sorted_build.py``).
 
 One invariant carries the build: **rows are stored segment-contiguous at
-every level.** Per-segment sums and sums of squares are prefix-sum
-differences at segment boundaries; retired (leaf) ranges stop being
+every level.** Per-segment sums and sums of squares are sums over each
+segment's rows (``segment_moments``); retired (leaf) ranges stop being
 referenced and keep their position, so the final layout is leaf-major
 with no finalize sort; the per-level stable partition moves rows only
 within their parent range, with destinations from one running count of
@@ -24,7 +24,16 @@ Differences from the JAX program, none of which changes a result:
 - every float prefix sum goes through ``prefix_sum``, whose order of
   additions depends on the shape alone, so one input gives one tree on
   every run; its two-level order rounds differently from XLA's, so on
-  float data a plane may differ from the JAX build's in its last ulp.
+  float data a plane may differ from the JAX build's in its last ulp;
+- on the card the segment moments that rank the split dimensions come
+  from a kernel (``segment_moments``) that sums each segment's sampled
+  rows directly, in an order fixed by the shape, ``k`` and the segment
+  bounds, where the JAX build (and the port on the CPU) differences two
+  prefix sums over every sample before the segment's end. That rounds
+  at the segment's own scale rather than the prefixes', so on float data
+  a split dimension may differ from the JAX build's where two variances
+  nearly tie; on integer-valued data every sum is exact and the trees
+  are equal bit for bit.
 
 Ties: ``tie_break="positional"`` halves rows on the plane (and whole
 zero-variance segments) by rank inside the segment. ``"mean_id"`` is the
@@ -50,13 +59,16 @@ single-device tree.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from vector_database_tpu_torch.ops import cuda_build
 from vector_database_tpu_torch.ops.collectives import (
     all_reduce,
     exclusive_prefix,
 )
-from vector_database_tpu_torch.utils.profiling import span
+from vector_database_tpu_torch.utils.profiling import COUNTERS, span
 
 # dimensions per prefix-scan pass: bounds the [chunk, N/k] transients
 _D_CHUNK = 128
@@ -94,6 +106,104 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     carry = prefix_sum(local[..., -1])  # inclusive row totals
     local[..., 1:, :] += carry[..., :-1, None]
     return local.reshape(*lead, tiles * _SCAN_ROW)[..., :n]
+
+
+def _at(prefix, idx):
+    """Exclusive prefix ``prefix[..., idx - 1]`` (0 at idx == 0)."""
+    v = prefix[..., torch.clamp(idx - 1, 0, prefix.shape[-1] - 1)]
+    return torch.where(idx > 0, v, torch.zeros((), dtype=v.dtype,
+                                               device=v.device))
+
+
+def segment_moments_reference(x, seg_start, seg_cnt, k):
+    """Plain version of ``segment_moments``: prefix sums of the transposed
+    samples, ``_D_CHUNK`` dimensions a pass, differenced at the segment
+    bounds. Each sum is the difference of two prefixes over every sample
+    before it, so it rounds at the scale of those prefixes."""
+    d = x.shape[1]
+    xs = x[::k]
+    # samples before idx
+    n_before = lambda idx: (idx + (k - 1)) // k  # noqa: E731
+    s_lo, s_hi = n_before(seg_start), n_before(seg_start + seg_cnt)
+    sums_c, sumsq_c = [], []
+    for c0 in range(0, d, _D_CHUNK):
+        # scan along the last dim: [chunk, ns] rows scan in parallel
+        xc = xs[:, c0 : c0 + _D_CHUNK].T
+        pre = prefix_sum(xc)
+        sums_c.append(_at(pre, s_hi) - _at(pre, s_lo))
+        pre = prefix_sum(xc * xc)
+        sumsq_c.append(_at(pre, s_hi) - _at(pre, s_lo))
+        del pre, xc
+    return torch.cat(sums_c, dim=0).T, torch.cat(sumsq_c, dim=0).T
+
+
+def _declare(lib):
+    lib.segment_moments_tile_samples.argtypes = []
+    lib.segment_moments_tile_samples.restype = ctypes.c_int
+    lib.segment_moments_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_longlong] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.segment_moments_launch.restype = ctypes.c_int
+
+
+def _load():
+    return cuda_build.load("segment_moments", _declare)
+
+
+def segment_moments(x, seg_start, seg_cnt, k):
+    """Per-segment sums and sums of squares of the sampled rows:
+    ``(sums, sumsq)``, each ``[S, D]`` f32, over the rows ``x[::k]`` holds
+    in each segment's rows ``[seg_start[s], seg_start[s] + seg_cnt[s])``,
+    zeros where a segment holds none. Segments ascend and do not overlap
+    (``seg_start[s] + seg_cnt[s] <= seg_start[s + 1]``), as the build keeps
+    them.
+
+    On a CUDA tensor this launches ``csrc/segment_moments.cu`` (built with
+    ``nvcc`` at first use), or raises: each sampled row of a segment is
+    read once and summed in registers in row order, with a fixed order
+    across the kernel's tiles, so one input gives the same bits on every
+    run; ``COUNTERS["build.moments.launches"]`` counts the launches. On a
+    CPU tensor it runs ``segment_moments_reference``."""
+    if x.device.type == "cpu":
+        return segment_moments_reference(x, seg_start, seg_cnt, k)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"segment_moments: no kernel for {x.device}")
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError("segment_moments: x must be [N, D] float32")
+    if x.stride(1) != 1:  # the kernel reads a row's columns side by side
+        x = x.contiguous()
+    if seg_start.dtype != torch.int64 or seg_cnt.dtype != torch.int64 or \
+            seg_start.shape != seg_cnt.shape or seg_start.dim() != 1 or \
+            not (seg_start.is_contiguous() and seg_cnt.is_contiguous()):
+        raise ValueError("segment_moments: seg_start and seg_cnt must be "
+                         "contiguous [S] int64")
+    if any(t.device != x.device for t in (seg_start, seg_cnt)):
+        raise ValueError("segment_moments: inputs must lie on one device")
+    if k < 1:
+        raise ValueError(f"segment_moments: k must be >= 1, got {k}")
+    n, d = x.shape
+    s = seg_start.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sums, sumsq = torch.empty((s, d), **f32), torch.empty((s, d), **f32)
+    if s == 0:
+        return sums, sumsq
+    lib = _load()
+    samples = -(-n // k)
+    tiles = max(1, -(-samples // lib.segment_moments_tile_samples()))
+    parts = torch.empty((2, tiles, 2 * d), **f32)  # head, tail partials
+    tail_seg = torch.empty(tiles, dtype=torch.int32, device=x.device)
+    err = lib.segment_moments_launch(
+        x.data_ptr(), x.stride(0), seg_start.data_ptr(), seg_cnt.data_ptr(),
+        s, k, d, n, sums.data_ptr(), sumsq.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), tail_seg.data_ptr(), tiles,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"segment_moments launch failed: CUDA error {err}")
+    COUNTERS["build.moments.launches"] += 1
+    return sums, sumsq
 
 
 def check_mean_id_rows(n_total: int) -> None:
@@ -161,12 +271,6 @@ def sorted_build(
     blocks = []  # per level: (dim, mid, low, high, leaf_start, leaf_count)
     node_base, s_live, use_max, level = 0, 1, True, 0
 
-    def at(prefix, idx):
-        """Exclusive prefix ``prefix[..., idx - 1]`` (0 at idx == 0)."""
-        v = prefix[..., torch.clamp(idx - 1, 0, prefix.shape[-1] - 1)]
-        return torch.where(idx > 0, v, torch.zeros((), dtype=v.dtype,
-                                                   device=dev))
-
     while s_live > 0 and level < max_levels:
         with span("vdb_torch.build.level"):
             if s_live > s_max or node_base + s_live > m_max:
@@ -180,26 +284,14 @@ def sorted_build(
 
             with span("vdb_torch.build.moments"):
                 # --- phase 1: split dimension from (optionally
-                # subsampled) segment moments via prefix-sum differences.
-                # Subsampling (every k-th row) only ranks dimensions; the
-                # plane itself is exact.
+                # subsampled) segment moments. Subsampling (every k-th
+                # row) only ranks dimensions; the plane itself is exact.
                 k = stats_subsample
-                xs = pvec[::k]
                 # samples before idx
                 n_before = lambda idx: (idx + (k - 1)) // k
                 s_lo, s_hi = n_before(seg_start), n_before(ends)
-                sums_c, sumsq_c = [], []
-                for c0 in range(0, d, _D_CHUNK):
-                    # scan along the last dim: [chunk, ns] rows scan in
-                    # parallel
-                    xc = xs[:, c0 : c0 + _D_CHUNK].T
-                    pre = prefix_sum(xc)
-                    sums_c.append(at(pre, s_hi) - at(pre, s_lo))
-                    pre = prefix_sum(xc * xc)
-                    sumsq_c.append(at(pre, s_hi) - at(pre, s_lo))
-                    del pre, xc
-                sums = psum(torch.cat(sums_c, dim=0)).T  # [S, D]
-                sumsq = psum(torch.cat(sumsq_c, dim=0)).T
+                sums, sumsq = segment_moments(pvec, seg_start, seg_cnt, k)
+                sums, sumsq = psum(sums), psum(sumsq)  # [S, D]
 
                 cnt_f = torch.clamp(g_cnt, min=1).to(torch.float32)
                 cnt_sub = psum(s_hi - s_lo)
@@ -238,14 +330,14 @@ def sorted_build(
                     # below 2^60)
                     ic = torch.cumsum(torch.where(active, pid, 0), dim=0)
                     mean_id = torch.div(
-                        psum(at(ic, ends) - at(ic, seg_start)),
+                        psum(_at(ic, ends) - _at(ic, seg_start)),
                         torch.clamp(g_cnt, min=1), rounding_mode="floor")
 
                 # --- phase 2: per-row split value and the exact split
                 # plane (one [N] prefix sum of the chosen column)
                 value = pvec.gather(1, p_dim[:, None])[:, 0]
                 vc = prefix_sum(torch.where(active, value, 0.0))
-                mid = psum(at(vc, ends) - at(vc, seg_start)) / cnt_f
+                mid = psum(_at(vc, ends) - _at(vc, seg_start)) / cnt_f
                 p_mid = mid[ps]
 
                 local_rank = pos - p_start
@@ -262,8 +354,8 @@ def sorted_build(
 
                 is_low_n = active & ~normal_high
                 cl = torch.cumsum(is_low_n.to(torch.int64), dim=0)
-                cl_lo = at(cl, seg_start)
-                lo_cnt = at(cl, ends) - cl_lo
+                cl_lo = _at(cl, seg_start)
+                lo_cnt = _at(cl, ends) - cl_lo
                 # zero-progress guard (fp edge: every row on one side) ->
                 # forced tie partition, like a degenerate segment
                 g_lo = psum(lo_cnt)
@@ -274,9 +366,9 @@ def sorted_build(
                     # lows
                     cli = torch.cumsum((active & ~tie_high).to(torch.int64),
                                        dim=0)
-                    cli_lo = at(cli, seg_start)
+                    cli_lo = _at(cli, seg_start)
                     lo_cnt = torch.where(degen_split,
-                                         at(cli, ends) - cli_lo, lo_cnt)
+                                         _at(cli, ends) - cli_lo, lo_cnt)
                 else:
                     # a rank split moves no rows: this shard's lows are its
                     # part of the segment's first ceil(cnt/2) global ranks

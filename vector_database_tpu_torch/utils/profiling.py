@@ -37,13 +37,16 @@ import torch.autograd.profiler as _autograd_profiler
 
 # Process-wide counts, never reset by the program (readers take
 # differences): the scan kernels' launches by block type, the real
-# queries served and the wave slots they filled (``PackedServer.query``).
+# queries served and the wave slots they filled (``PackedServer.query``),
+# and the segment-moments kernel's launches (one a level of a fused build
+# on the card).
 COUNTERS = dict.fromkeys((
     "scan.launches.bf16",
     "scan.launches.int8f",
     "scan.launches.int8",
     "serve.queries",
     "serve.slots",
+    "build.moments.launches",
 ), 0)
 
 _OFF = contextlib.nullcontext()
