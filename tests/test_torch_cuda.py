@@ -31,7 +31,9 @@ tree over ``make_mesh()`` and over ``make_mesh_2d(1, 1)`` with
 of a tie, as the split-dimension choice needs. The ``recall_qps`` and
 ``latency`` harnesses run at 100k x 96 on the card, with their recall
 floors, and a latency request ends with its rows on the host.
-``DynamicIndex.merge_delta`` on the card equals its CPU run, and the
+``DynamicIndex.merge_delta`` on the card equals its CPU run, a churn
+sequence of ``DynamicIndex`` at 1M x 96 holds the live-set reference
+(``tests/live_reference.py``) with its counters, and the
 ``probe_perm``, ``probe_meanid`` and ``probe_sharded_mem`` harnesses run
 there with their equalities. The headline bench
 (``vector_database_tpu_torch.bench``) runs every leg at 200k x 96 with
@@ -827,6 +829,80 @@ def test_delta_merge_on_card_equals_cpu(cuda_device):
         assert np.array_equal(ci, gi) and np.array_equal(cd, gd)
     ids, d2 = out["cpu"][0]
     assert (d2[:, :-1] == d2[:, 1:]).any() and (ids >= 20_000).any()
+
+
+@pytest.mark.cuda
+def test_dynamic_churn_on_card_holds_the_live_set(cuda_device):
+    """``DynamicIndex`` at 1M x 96 on the card through a few churn cycles
+    (1% removed, a 1,000-row delta, adds of 100, then the oldest add and
+    10 built ids removed), served packed and held to the plain live-set
+    reference: no removed id served, every probe near the last add finds
+    its nearest live row, served distances exact (float32 differences,
+    rtol 1e-5), recall@10 >= 0.97, and the dynamic counters rise by the
+    cycles' counts."""
+    from live_reference import LiveSet
+
+    from vector_database_tpu_torch import DynamicIndex
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(19)
+    n, d, k, step, cycles = 1_000_000, 96, 10, 100, 4
+    cent = torch.rand((1000, d), generator=g, device=dev) * 2 - 1
+
+    def unit(x):
+        return x / x.norm(dim=1, keepdim=True)
+
+    def draw(m):
+        pick = torch.randint(0, 1000, (m,), generator=g, device=dev)
+        return unit(cent[pick] + 0.05 * torch.randn((m, d), generator=g,
+                                                    device=dev))
+
+    rows = draw(n)
+    idx = DynamicIndex(rows, leaf_size=16)
+    live = LiveSet(dev)
+    live.add(rows)
+    order = torch.randperm(n, generator=g, device=dev).cpu().numpy()
+    assert idx.remove_ids(order[:10_000]) == live.remove_ids(order[:10_000])
+    adds = []
+    for _ in range(10):
+        r = draw(step)
+        ids = idx.add(r.cpu().numpy())
+        assert np.array_equal(ids, live.add(r).cpu().numpy())
+        adds.append((ids, r))
+    before = dict(COUNTERS)
+    hits = total = 0
+    for c in range(cycles):
+        near = adds[-1][1] + 0.002 * torch.randn((step, d), generator=g,
+                                                 device=dev)
+        q = torch.cat([draw(1900), unit(near)])
+        ids, d2 = idx.knn(q.cpu().numpy(), k=k, exact=False, packed=True)
+        served = torch.as_tensor(ids, device=dev)
+        assert live.is_live(served).all(), "a removed id was served"
+        want = live.distances(q, served).cpu().numpy()
+        np.testing.assert_allclose(d2, want, rtol=1e-5, atol=0)
+        truth_i, truth_d = live.knn(q, k)
+        assert (served[1900:] == truth_i[1900:, :1]).any(dim=1).all()
+        got_d = live.distances(q, served)
+        hits += int((got_d <= truth_d[:, k - 1:k] * (1 + 1e-9)).sum())
+        total += served.numel()
+        r = draw(step)
+        ids = idx.add(r.cpu().numpy())
+        assert np.array_equal(ids, live.add(r).cpu().numpy())
+        adds.append((ids, r))
+        gone = np.concatenate([adds.pop(0)[0],
+                               order[10_000 + 10 * c:10_000 + 10 * (c + 1)]])
+        assert idx.remove_ids(gone) == live.remove_ids(gone) == step + 10
+    assert hits / total >= 0.97
+    got = {key: COUNTERS[key] - before[key] for key in COUNTERS
+           if key.startswith("dynamic.")}
+    assert got == {
+        "dynamic.rows_added": cycles * step,
+        "dynamic.rows_removed": cycles * (step + 10),
+        "dynamic.main_views": cycles,  # one a request after a removal
+        "dynamic.delta_rows": cycles * 10 * step,
+        "dynamic.delta_slots": cycles * 1024,
+        "dynamic.compactions": 0,
+    }
 
 
 def _harness_lines(name, argv):

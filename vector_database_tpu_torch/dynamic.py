@@ -45,6 +45,7 @@ from vector_database_tpu_torch.ops.packed_knn import (
 from vector_database_tpu_torch.ops.scan_knn import _lowest_k, scan_knn
 from vector_database_tpu_torch.search import search as bsp_search
 from vector_database_tpu_torch.utils.device import resolve_device
+from vector_database_tpu_torch.utils.profiling import COUNTERS, span, spanned
 
 
 def exact_d2_blocked(queries, vectors: torch.Tensor) -> torch.Tensor:
@@ -95,6 +96,7 @@ class DynamicIndex:
         self._delta_cache = None  # (padded delta matrix|None, padded ids)
         self._packed = None  # (main-view identity, PackedDB, pack ids)
         self._packed_base = None  # (index identity, unmasked PackedDB)
+        self._epoch = None  # (index identity, leaf-major ids, row of id)
         if vectors is not None:
             self.add(vectors)
             if self._delta_vecs:  # add's threshold may have compacted
@@ -142,18 +144,36 @@ class DynamicIndex:
         ride along as an ``[N]`` bool mask folded into the scan. Cached
         until a mutation touches the main segment (remove/compact)."""
         if self._serve is None:
-            if self._index is None or not self._main_alive.any():
-                self._serve = (None, np.zeros((0,), np.int64), None)
-            else:
-                orig = to_numpy(self._index.orig_row)
-                mi = self._main_ids[orig]
-                mask = (
-                    None if self._main_alive.all()
-                    else torch.from_numpy(self._main_alive[orig]).to(
-                        self._device)
-                )
-                self._serve = (self._index.vectors, mi, mask)
+            COUNTERS["dynamic.main_views"] += 1
+            with span("vdb_torch.dynamic.main_view"):
+                self._serve = self._build_main_view()
         return self._serve
+
+    def _build_main_view(self):
+        if self._index is None or not self._main_alive.any():
+            return (None, np.zeros((0,), np.int64), None)
+        mask = (
+            None if self._main_alive.all()
+            else torch.from_numpy(self._main_alive).to(self._device)[
+                self._index.orig_row]
+        )
+        return (self._index.vectors, self._epoch_maps()[1], mask)
+
+    def _epoch_maps(self):
+        """Per compaction epoch (keyed by the main index): the external id
+        of each leaf-major row, and the main row of each external id (-1
+        for an id not in the main segment), so that a removal costs a
+        lookup of its ids and a new main view a gather of the alive mask on
+        the device, not a pass over every main row on the host."""
+        if self._epoch is None or self._epoch[0] is not self._index:
+            ids = self._main_ids
+            row_of = np.full(int(ids.max()) + 1 if ids.size else 0, -1,
+                             np.int64)
+            row_of[ids] = np.arange(ids.size)
+            leaf_ids = (ids if self._index is None
+                        else ids[to_numpy(self._index.orig_row)])
+            self._epoch = (self._index, leaf_ids, row_of)
+        return self._epoch
 
     def _delta_view(self):
         """Device view of the delta rows: ``(matrix | None, ids)``, the
@@ -161,20 +181,23 @@ class DynamicIndex:
         rows carry id -1 and are masked after the distance pass), so the
         per-batch merge sees few distinct shapes as the delta grows."""
         if self._delta_cache is None:
-            nd = self._delta_size()
-            if not nd:
-                self._delta_cache = (None, np.zeros((0,), np.int64))
-            else:
-                cap = 64
-                while cap < nd:
-                    cap *= 2
-                mat = torch.zeros((cap, self._dims), dtype=torch.float32,
-                                  device=self._device)
-                mat[:nd] = torch.cat(self._delta_vecs)
-                ids = np.full((cap,), -1, np.int64)
-                ids[:nd] = np.concatenate(self._delta_ids)
-                self._delta_cache = (mat, ids)
+            with span("vdb_torch.dynamic.delta_view"):
+                self._delta_cache = self._build_delta_view()
         return self._delta_cache
+
+    def _build_delta_view(self):
+        nd = self._delta_size()
+        if not nd:
+            return (None, np.zeros((0,), np.int64))
+        cap = 64
+        while cap < nd:
+            cap *= 2
+        mat = torch.zeros((cap, self._dims), dtype=torch.float32,
+                          device=self._device)
+        mat[:nd] = torch.cat(self._delta_vecs)
+        ids = np.full((cap,), -1, np.int64)
+        ids[:nd] = np.concatenate(self._delta_ids)
+        return (mat, ids)
 
     def _invalidate_main(self) -> None:
         """Drop the main view and its (possibly masked) pack."""
@@ -197,6 +220,7 @@ class DynamicIndex:
         return self._dims
 
     # --- mutation -----------------------------------------------------
+    @spanned("vdb_torch.dynamic.add")
     def add(self, vectors) -> np.ndarray:
         """Insert rows; returns their assigned external ids."""
         vectors = as_f32(vectors, self._device)
@@ -216,11 +240,13 @@ class DynamicIndex:
             # a copy: the caller may reuse its buffer for the next add
             self._delta_vecs.append(vectors.clone())
             self._delta_ids.append(ids)
+            COUNTERS["dynamic.rows_added"] += ids.size
         # adds touch only the delta: the main view and its pack stay valid
         self._invalidate_delta()
         self._maybe_compact()
         return ids
 
+    @spanned("vdb_torch.dynamic.remove")
     def remove(self, vector, radius: float) -> int:
         """Remove every row within ``radius`` of ``vector``; returns the
         number removed."""
@@ -250,15 +276,20 @@ class DynamicIndex:
             if not keep.all():
                 removed += int((~keep).sum())
                 self._keep_delta(keep)
+        COUNTERS["dynamic.rows_removed"] += removed
         self._maybe_compact()
         return removed
 
+    @spanned("vdb_torch.dynamic.remove")
     def remove_ids(self, ids) -> int:
         """Remove rows by external id; returns the number removed."""
         ids = np.unique(np.atleast_1d(to_numpy(ids)).astype(np.int64))
-        hit = np.isin(self._main_ids, ids) & self._main_alive
+        row_of = self._epoch_maps()[2]
+        rows = row_of[ids[(ids >= 0) & (ids < row_of.size)]]
+        rows = rows[rows >= 0]
+        hit = rows[self._main_alive[rows]]
         self._main_alive[hit] = False
-        removed = int(hit.sum())
+        removed = int(hit.size)
         if removed:
             self._invalidate_main()
         if self._delta_vecs:
@@ -266,6 +297,7 @@ class DynamicIndex:
             if not keep.all():
                 removed += int((~keep).sum())
                 self._keep_delta(keep)
+        COUNTERS["dynamic.rows_removed"] += removed
         self._maybe_compact()
         return removed
 
@@ -315,6 +347,7 @@ class DynamicIndex:
             for i, d in out
         ]
 
+    @spanned("vdb_torch.dynamic.knn")
     def knn(self, queries, k: int, radius: Optional[float] = None,
             *, exact: Optional[bool] = None, allowed_ids=None,
             packed: bool = False, probes: Optional[int] = None,
@@ -370,19 +403,8 @@ class DynamicIndex:
         if mat is not None:
             if packed:
                 if self._packed is None or self._packed[0] is not view:
-                    # a new main view is a new epoch. The base pack is
-                    # built once per compaction epoch and survives
-                    # removals: a tombstone epoch only masks its norm row
-                    if (self._packed_base is None
-                            or self._packed_base[0] is not self._index):
-                        self._packed_base = (self._index, pack_database(mat))
-                    base = self._packed_base[1]
-                    self._packed = (
-                        view,
-                        base if alive_mask is None
-                        else base.mask_rows(alive_mask),
-                        main_ids,
-                    )
+                    with span("vdb_torch.dynamic.main_view"):
+                        self._packed = self._pack_view(view)
                 ids_map = self._packed[2]
                 kk = min(k, ids_map.size)
                 rows, d2 = pallas_scan_knn_packed(
@@ -421,6 +443,19 @@ class DynamicIndex:
             d2 = np.where(hit, d2, np.inf).astype(np.float32)
         return ids, d2
 
+    def _pack_view(self, view):
+        """``(view, PackedDB, ids)`` of a main view. A new main view is a
+        new epoch. The base pack is built once per compaction epoch and
+        survives removals: a tombstone epoch only masks its norm row."""
+        mat, main_ids, alive_mask = view
+        if (self._packed_base is None
+                or self._packed_base[0] is not self._index):
+            self._packed_base = (self._index, pack_database(mat))
+        base = self._packed_base[1]
+        return (view, base if alive_mask is None
+                else base.mask_rows(alive_mask), main_ids)
+
+    @spanned("vdb_torch.dynamic.merge")
     def merge_delta(self, queries, ids, d2, k: int, *, allowed=None):
         """Merge the delta rows into a main-segment top-k ``(ids [Q, k],
         d2 [Q, k])``, on the index's device: exact f32 distances to the
@@ -436,6 +471,8 @@ class DynamicIndex:
         live = dids >= 0
         if allowed is not None:
             live &= np.isin(dids, allowed)
+        COUNTERS["dynamic.delta_rows"] += int(live.sum())
+        COUNTERS["dynamic.delta_slots"] += dids.size
         dd2 = torch.where(torch.from_numpy(live).to(dev),
                           exact_d2_blocked(queries, dmat), float("inf"))
         dd2, pos = _lowest_k(dd2, min(k, dids.size))
@@ -497,6 +534,7 @@ class DynamicIndex:
                                        device=out._device)
         return out
 
+    @spanned("vdb_torch.dynamic.compact")
     def compact(self) -> None:
         """Rebuild the main tree over all live rows and clear the delta;
         a no-op when already compact (empty delta, no tombstones)."""
@@ -506,6 +544,7 @@ class DynamicIndex:
             and self._main_alive.all()
         ):
             return
+        COUNTERS["dynamic.compactions"] += 1
         self._invalidate_serve()
         parts_v, parts_i = self._live_parts()
         self._delta_vecs, self._delta_ids = [], []

@@ -38,8 +38,10 @@ import torch.autograd.profiler as _autograd_profiler
 # Process-wide counts, never reset by the program (readers take
 # differences): the scan kernels' launches by block type, the real
 # queries served and the wave slots they filled (``PackedServer.query``),
-# and the segment-moments kernel's launches (one a level of a fused build
-# on the card).
+# the segment-moments kernel's launches (one a level of a fused build
+# on the card), and ``DynamicIndex``'s mutations: rows added and removed,
+# rebuilds of its main view, the live delta rows merged and the padded
+# delta capacity they were merged in (summed over merges), compactions.
 COUNTERS = dict.fromkeys((
     "scan.launches.bf16",
     "scan.launches.int8f",
@@ -47,6 +49,12 @@ COUNTERS = dict.fromkeys((
     "serve.queries",
     "serve.slots",
     "build.moments.launches",
+    "dynamic.rows_added",
+    "dynamic.rows_removed",
+    "dynamic.main_views",
+    "dynamic.delta_rows",
+    "dynamic.delta_slots",
+    "dynamic.compactions",
 ), 0)
 
 _OFF = contextlib.nullcontext()
