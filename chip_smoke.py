@@ -5,13 +5,14 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the four CUDA sources from ``vector_database_tpu_torch/csrc``
+1. build the five CUDA sources from ``vector_database_tpu_torch/csrc``
    (``bucket_scan_sm90.cu``, the scan of bf16 and int8f packs,
    ``bucket_scan_i8.cu``, the exact int8 scan, and ``probe_kernel_ab.cu``,
-   the A/B probe, all on the Hopper skeleton of ``sm90.cuh``, and
-   ``segment_moments.cu``, the build's segment moments), one ``nvcc``
-   each, all at once, and say whether the build was cold or found its
-   libraries under ``build/`` already;
+   the A/B probe, all on the Hopper skeleton of ``sm90.cuh``;
+   ``segment_moments.cu``, the build's segment moments, and
+   ``delta_knn.cu``, the delta merge's k best), one ``nvcc`` each, all at
+   once, and say whether the build was cold or found its libraries under
+   ``build/`` already;
 2. hold the kernel to the exact oracle where the scan is exact
    (n <= buckets: every row owns a bucket);
 3. the main path at 10M x 96 clustered rows (the bench recipe: n/1000
@@ -150,6 +151,17 @@ Phases (each raises on failure; nothing is caught):
    once and written once at the card's memory rate), and each version's
    largest error against float64 sums in ulps of the segment's sum of
    |x|; the kernel's launch count must rise with each call.
+17. the delta merge's k-NN kernel (``dynamic.delta_knn``) at the churn
+   cell's shape: DELTA_Q = 10,000 queries (half near-duplicates of live
+   rows, noise 0.002 a dimension) against DELTA_R = 16,384 padded slots
+   of unit rows, DELTA_LIVE = 10,000 live, D = 96, k = 10: kernel and
+   plain version (``exact_d2_blocked`` + mask + ``_lowest_k``) timed, the
+   bound (3 Q D R f32 operations at the f32 peak, as the benchmark's
+   ``merge_roofline_pct`` counts them), the library yardstick
+   ``torch.cdist`` + ``torch.topk`` (timed only: the port never calls
+   it), the distances against float64 (within 2e-5 relative), the ids
+   against the plain version where the k-th place is clear, integer rows
+   bit for bit, and the launch count.
 
 It prints the card's name and power limit, one JSON line each of the
 main path's, phase 7's, phase 9's, phases 10-11's, phase 12's
@@ -179,6 +191,7 @@ REMOVE, ADD, EXACT_Q, PROBE = N // 100, 10_000, 256, 256
 TAIL_N, TAIL_BUCKETS, TAIL_Q = 1_000_000, 1000, 1024
 STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
 OOC_N, OOC_CHUNK, OOC_PROBES = 30_000_000, 10_000_000, 256
+DELTA_Q, DELTA_R, DELTA_LIVE = 10_000, 16_384, 10_000
 SMALL_N, SMALL_D, SMALL_CHUNK, SMALL_Q = 1_000_000, 8, 250_000, 64
 MODEL_N, MODEL_D, MODEL_Q, BOOL_P, BOOL_Q = 100_000, 8, 64, 64, 4096
 HARNESS_N = 1_000_000
@@ -186,6 +199,7 @@ REPS = 3
 DEVICE = "cuda"
 # NVIDIA H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM
 PEAK_BF16, PEAK_INT8, PEAK_HBM = 989e12, 1979e12, 3.35e12
+PEAK_F32 = 67e12  # float32 outside the tensor cores
 LIB_BLOCKS = 8  # blocks per library-yardstick call, scaled to the scan
 
 
@@ -423,8 +437,13 @@ def _dynamic_phase(dev):
         raise AssertionError("the removal rebuilt the base pack")
     out["packed_ms"] = _host_ms(lambda: idx.knn(test, K, packed=True), REPS)
     q_dev = torch.as_tensor(test, device=dev)
+    merges0 = COUNTERS["dynamic.delta_knn.launches"]
     out["delta_merge_ms"] = _host_ms(
         lambda: idx.merge_delta(q_dev, ids, d2, K), REPS)
+    out["delta_knn_launches"] = COUNTERS["dynamic.delta_knn.launches"] - \
+        merges0
+    if out["delta_knn_launches"] < 1:
+        raise AssertionError("merge_delta never launched delta_knn")
     out["packed_qps"] = Q / out["packed_ms"] * 1e3
 
     alive = torch.ones(N, dtype=torch.bool, device=dev)
@@ -1797,6 +1816,85 @@ def _moments_phase(dev):
     return out
 
 
+def _delta_knn_phase(dev):
+    """Phase 17: the delta k-NN kernel at the churn cell's merge shape;
+    its numbers (kernel, plain and library ms, bound, largest relative
+    error against float64, launches). Raises where a distance passes
+    2e-5 relative of float64, where the ids differ from the plain
+    version's at a clear k-th place, or where on integer rows the kernel
+    and the plain version differ by a bit."""
+    import numpy as np
+    import torch
+
+    from vector_database_tpu_torch import dynamic as dyn
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rows = torch.randn((DELTA_LIVE, D), generator=g, device=dev)
+    rows /= rows.norm(dim=1, keepdim=True)
+    delta = torch.zeros((DELTA_R, D), device=dev)
+    delta[:DELTA_LIVE] = rows
+    live = np.zeros(DELTA_R, bool)
+    live[:DELTA_LIVE] = True
+    half = DELTA_Q // 2
+    pick = torch.randint(0, DELTA_LIVE, (half,), generator=g, device=dev)
+    q = torch.cat([
+        rows[pick] + 0.002 * torch.randn((half, D), generator=g, device=dev),
+        rows[torch.randint(0, DELTA_LIVE, (DELTA_Q - half,), generator=g,
+                           device=dev)].roll(1, dims=1)])
+    before = COUNTERS["dynamic.delta_knn.launches"]
+    k_ms = _ms(lambda: dyn.delta_knn(q, delta, live, K), REPS)
+    launches = COUNTERS["dynamic.delta_knn.launches"] - before
+    per_call = launches // (REPS + 1)
+    if launches < 1 or launches != per_call * (REPS + 1):
+        raise AssertionError(f"{launches} delta_knn launches in {REPS + 1} "
+                             f"calls")
+    p_ms = _ms(lambda: dyn.delta_knn_reference(q, delta, live, K), REPS)
+    lib_ms = _ms(lambda: torch.topk(torch.cdist(q, rows), K, dim=1,
+                                    largest=False), REPS)
+
+    def f64(slots):
+        return ((q.double()[:, None, :] - delta.double()[slots]) ** 2).sum(-1)
+
+    got_d, got_s = dyn.delta_knn(q, delta, live, K)
+    exact = f64(got_s)
+    rel = float(((got_d.double() - exact).abs() / exact).max())
+    if rel > 2e-5:
+        raise AssertionError(f"delta_knn distance off float64 by {rel}")
+    want_d, want_s = dyn.delta_knn_reference(q, delta, live, K + 1)
+    want_exact = f64(want_s[:, :K])
+    prel = float(((want_d[:, :K].double() - want_exact).abs()
+                  / want_exact).max())
+    clear = (want_d[:, K] - want_d[:, K - 1]) > 2e-5 * want_d[:, K]
+    if not torch.equal(got_s[clear].sort(1).values,
+                       want_s[clear, :K].sort(1).values):
+        raise AssertionError("delta_knn ids differ from the plain "
+                             "version's at a clear k-th place")
+    qi, di = torch.round(q * 2), torch.round(delta * 2)
+    ki = dyn.delta_knn(qi, di, live, K)
+    pi = dyn.delta_knn_reference(qi, di, live, K)
+    if not (torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])):
+        raise AssertionError("delta_knn differs from the plain version on "
+                             "integer rows")
+    ops = 3.0 * DELTA_Q * D * DELTA_LIVE
+    nbytes = (DELTA_Q * D + DELTA_LIVE * D) * 4 + DELTA_Q * K * 12
+    out = dict(q=DELTA_Q, slots=DELTA_R, live=DELTA_LIVE, d=D, k=K,
+               **_numbers(k_ms, ops, nbytes, PEAK_F32, lib_ms),
+               plain_ms=p_ms, launches=launches, launches_per_call=per_call,
+               max_rel_err_f64=rel, plain_max_rel_err_f64=prel,
+               clear_kth_share=float(clear.float().mean()),
+               integer_rows_equal=True)
+    print(f"[delta_knn] q={DELTA_Q}, {DELTA_R} slots ({DELTA_LIVE} live), "
+          f"d={D}, k={K}: kernel {k_ms:.3f} ms, bound {out['bound_ms']:.3f} "
+          f"ms ({out['bound_by']}, {out['pct_of_bound']:.1f}%), plain "
+          f"{p_ms:.3f} ms, cdist + topk {lib_ms:.3f} ms; max rel err vs "
+          f"float64 {rel:.2e} (plain {prel:.2e}); ids equal the plain "
+          f"version's at {out['clear_kth_share']:.4f} of queries (a clear "
+          f"k-th place); integer rows equal; launches {launches} "
+          f"({per_call} a call)")
+    return out
+
+
 def _bench_keys(env, nb):
     """The keys JAX's ``bench.py`` prints for the knobs in ``env`` when the
     serving pack has ``nb`` blocks (one rank: the sharded pack too)."""
@@ -1917,6 +2015,7 @@ def main():
         pallas_scan_knn_packed_rt,
         search,
     )
+    from vector_database_tpu_torch import dynamic
     from vector_database_tpu_torch.benchmarks import probe_kernel_ab as pab
     from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
@@ -1940,7 +2039,7 @@ def main():
 
     # ---- 1. build -----------------------------------------------------
     sources = ("bucket_scan_sm90", "bucket_scan_i8", "probe_kernel_ab",
-               "segment_moments")
+               "segment_moments", "delta_knn")
     found = sum(cuda_build.library_path(x).exists() for x in sources)
     start = ("cold (no library in build/)" if found == 0 else
              "cached (every library found in build/)"
@@ -1950,10 +2049,11 @@ def main():
     cuda_build.build(*sources)
     for mod in (bs, bi, pab, sorted_build):
         mod._load()
+    dynamic._load_delta_knn()
     print(f"[build] vector_database_tpu_torch/csrc: bucket_scan_sm90.cu, "
           f"bucket_scan_i8.cu, probe_kernel_ab.cu (each with sm90.cuh), "
-          f"segment_moments.cu, one nvcc each, {start}: built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"segment_moments.cu, delta_knn.cu, one nvcc each, {start}: "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 2. exactness where the scan is exact (n <= buckets) ------------
     g = torch.Generator(device=dev).manual_seed(42)
@@ -2364,6 +2464,10 @@ def main():
 
     # ---- 16. the build's segment moments --------------------------------
     moments = _moments_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 17. the delta merge's k best -------------------------------------
+    delta_knn = _delta_knn_phase(dev)
 
     print(json.dumps({"main_path": dict(
         n=N, d=D, q=Q, build_s=build_s, build_vps=N / build_s,
@@ -2466,6 +2570,13 @@ def main():
         "replaces": None,  # the JAX build leaves phase 1 to XLA
         "build_launches": build_moments,
         **moments,
+    }, {
+        "name": "delta_knn",
+        "route": "cuda",
+        "source": "vector_database_tpu_torch/csrc/delta_knn.cu",
+        "replaces": None,  # the JAX package merges the delta on the host
+        "merge_launches_dynamic": dyn["delta_knn_launches"],
+        **delta_knn,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

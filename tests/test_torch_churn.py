@@ -178,6 +178,7 @@ def test_counters_rise_by_the_cycles_counts():
         "dynamic.delta_rows": cycles * DELTA,
         "dynamic.delta_slots": cycles * 256,  # the next power of two
         "dynamic.compactions": 0,
+        "dynamic.delta_knn.launches": 0,  # the CPU merge is the plain one
     }
     before = COUNTERS["dynamic.compactions"]
     c.index.compact()

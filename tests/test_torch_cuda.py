@@ -31,6 +31,9 @@ tree over ``make_mesh()`` and over ``make_mesh_2d(1, 1)`` with
 of a tie, as the split-dimension choice needs. The ``recall_qps`` and
 ``latency`` harnesses run at 100k x 96 on the card, with their recall
 floors, and a latency request ends with its rows on the host.
+The delta k-NN kernel (``csrc/delta_knn.cu``) equals its plain version
+on integer rows bit for bit, holds float rows to float64 within 2e-5,
+and counts its launches on card merges only.
 ``DynamicIndex.merge_delta`` on the card equals its CPU run, a churn
 sequence of ``DynamicIndex`` at 1M x 96 holds the live-set reference
 (``tests/live_reference.py``) with its counters, and the
@@ -902,7 +905,137 @@ def test_dynamic_churn_on_card_holds_the_live_set(cuda_device):
         "dynamic.delta_rows": cycles * 10 * step,
         "dynamic.delta_slots": cycles * 1024,
         "dynamic.compactions": 0,
+        "dynamic.delta_knn.launches": cycles * 2,  # a pass and its join
     }
+
+
+def _int_delta_case(dev, seed, q, r, d, span, live_share):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    queries = torch.randint(-span, span + 1, (q, d), generator=g,
+                            device=dev).float()
+    delta = torch.randint(-span, span + 1, (r, d), generator=g,
+                          device=dev).float()
+    live = (torch.rand(r, generator=g, device=dev) < live_share).cpu()
+    return queries, delta, live.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,r,d,span,live_share,k", [
+    (300, 3000, 16, 1, 0.6, 10),      # many ties, several straddling the k-th
+    (1000, 16384, 96, 2, 0.61, 10),   # the churn cell's padded delta
+    (77, 1000, 100, 3, 0.5, 32),      # the largest k
+    (1, 5000, 130, 2, 1.0, 7),        # one query: the rows split 27 ways
+    (4097, 100, 16, 1, 1.0, 10),      # one tile of rows: a single split
+    (513, 129, 96, 1, 0.9, 1),        # a partial second tile
+    (200, 64, 16, 2, 0.07, 10),       # fewer live rows than k
+    (65, 300, 7, 2, 0.0, 10),         # no live row
+    (40, 300, 0, 1, 0.5, 10),         # no dimension: every distance 0
+    (100, 3000, 16, 1, 0.6, 40),      # two places a lane
+    (64, 2000, 96, 2, 0.8, 100),      # four places a lane
+    (33, 1500, 20, 1, 0.9, 300),      # three passes, ties at the seams
+    (10, 200, 16, 1, 0.5, 150),       # a second pass past the live rows
+    (5, 1000, 8, 1, 1.0, 1000),       # k = R: eight passes
+])
+def test_delta_knn_kernel_equals_plain_on_integer_rows(
+        cuda_device, q, r, d, span, live_share, k):
+    """The delta k-NN kernel against its plain version on integer rows,
+    where every f32 distance is exact: the distances bit for bit, and the
+    slots wherever the place is filled (a live row), through ties that
+    straddle the k-th place, dead slots, fewer live rows than ``k``,
+    ``D`` off the 32-dimension chunk and off 4 (4-byte copies) and 0,
+    ``Q`` off the 64-query CTA and ``R`` off the 128-row tile and the
+    split, and ``k`` of one, two and four places a lane and past a pass
+    of 128 places (each pass after the first takes the pairs after the
+    last place of the one before). The places past the live rows hold
+    (+inf, -1). A second call gives the same bits."""
+    from vector_database_tpu_torch import dynamic as dyn
+
+    queries, delta, live = _int_delta_case(cuda_device, q + r + d, q, r, d,
+                                           span, live_share)
+    before = COUNTERS["dynamic.delta_knn.launches"]
+    got_d, got_s = dyn.delta_knn(queries, delta, live, k)
+    torch.cuda.synchronize()
+    passes = -(-min(k, r) // 128)
+    assert COUNTERS["dynamic.delta_knn.launches"] - before == 2 * passes
+    want_d, want_s = dyn.delta_knn_reference(queries, delta, live, k)
+    assert got_d.shape == got_s.shape == (q, min(k, r))
+    assert torch.equal(got_d, want_d)
+    filled = torch.isfinite(want_d)
+    assert torch.equal(got_s[filled], want_s[filled])
+    assert (got_s[~filled] == -1).all()
+    assert int(filled.sum(1).min()) == min(k, int(live.sum()))
+    again = dyn.delta_knn(queries, delta, live, k)
+    assert torch.equal(again[0], got_d) and torch.equal(again[1], got_s)
+
+
+@pytest.mark.cuda
+def test_delta_knn_kernel_on_float_rows_on_card(cuda_device):
+    """10,000 queries against the churn cell's delta (16,384 slots,
+    10,000 live) of float rows, k = 10, half the queries near-duplicates
+    of live rows (noise 0.002 a dimension, where the matrix-product
+    expansion cancels): each served distance within 2e-5 relative of the
+    float64 difference form of its row, and the ids those of the plain
+    version wherever the k-th and (k+1)-th plain distances differ by
+    more than that."""
+    from vector_database_tpu_torch import dynamic as dyn
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(20)
+    q, r, n_live, d, k = 10_000, 16_384, 10_000, 96, 10
+    rows = torch.randn((n_live, d), generator=g, device=dev)
+    rows /= rows.norm(dim=1, keepdim=True)
+    delta = torch.zeros((r, d), device=dev)
+    delta[:n_live] = rows
+    live = np.zeros(r, bool)
+    live[:n_live] = True
+    pick = torch.randint(0, n_live, (q // 2,), generator=g, device=dev)
+    queries = torch.cat([
+        rows[pick] + 0.002 * torch.randn((q // 2, d), generator=g,
+                                         device=dev),
+        torch.randn((q - q // 2, d), generator=g, device=dev) * 0.1])
+    got_d, got_s = dyn.delta_knn(queries, delta, live, k)
+    assert (got_s >= 0).all() and (got_s < n_live).all()
+    exact = ((queries.double()[:, None, :] - delta.double()[got_s]) ** 2
+             ).sum(-1)
+    assert ((got_d.double() - exact).abs() <= 2e-5 * exact).all()
+    want_d, want_s = dyn.delta_knn_reference(queries, delta, live, k + 1)
+    clear = (want_d[:, k] - want_d[:, k - 1]) > 2e-5 * want_d[:, k]
+    assert float(clear.float().mean()) > 0.99
+    assert torch.equal(got_s[clear].sort(1).values,
+                       want_s[clear, :k].sort(1).values)
+    assert torch.equal(got_s[:q // 2, 0], pick)
+
+
+@pytest.mark.cuda
+def test_delta_knn_launches_count_the_card_merges(cuda_device):
+    """``dynamic.delta_knn.launches`` rises on a merge on the card, by two
+    (a pass and its join) at k = 10 and by four (two passes) at k = 200,
+    and not on a CPU merge; the card merge serves the delta rows the CPU
+    merge serves, at both."""
+    from vector_database_tpu_torch import DynamicIndex
+
+    rng = np.random.default_rng(20)
+    main = rng.integers(-4, 5, (5_000, 16)).astype(np.float32)
+    delta = rng.integers(-2, 3, (300, 16)).astype(np.float32)
+    q = rng.integers(-2, 3, (100, 16)).astype(np.float32)
+    counts, merged = {}, {}
+    for dev in ("cpu", cuda_device):
+        idx = DynamicIndex(main, leaf_size=16, rebuild_fraction=100.0,
+                           device=dev)
+        idx.add(delta)
+        for k in (10, 200):
+            before = COUNTERS["dynamic.delta_knn.launches"]
+            ids = np.full((len(q), k), -1, np.int64)
+            d2 = np.full((len(q), k), np.inf, np.float32)
+            merged[str(dev), k] = idx.merge_delta(q, ids, d2, k)
+            counts[str(dev), k] = (COUNTERS["dynamic.delta_knn.launches"]
+                                   - before)
+    assert counts["cpu", 10] == counts["cpu", 200] == 0
+    assert counts["cuda", 10] == 2 and counts["cuda", 200] == 4
+    for k in (10, 200):
+        (ci, cd), (gi, gd) = merged["cpu", k], merged["cuda", k]
+        assert np.array_equal(np.asarray(cd), np.asarray(gd))
+        assert np.array_equal(np.asarray(ci), np.asarray(gi))
 
 
 def _harness_lines(name, argv):

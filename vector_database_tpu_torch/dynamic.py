@@ -20,10 +20,17 @@ the delta merge runs on the device and keeps the earlier add on equal
 distances, where the JAX class's host partial sort (numpy's introselect)
 keeps arbitrary rows on a tie at the k-th distance and may list equal
 distances out of add order.
+
+On the card the delta's k best come from one hand-written kernel
+(``csrc/delta_knn.cu``, ``delta_knn``): the exact f32 difference-form
+distances and a tie-exact top-k, one pass a 128 places, with no
+``[Q, R]`` matrix in device memory, for any ``k``. On the CPU the plain
+version ``delta_knn_reference`` runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
@@ -32,6 +39,7 @@ import torch
 
 from vector_database_tpu_torch.builder import build_index_fused
 from vector_database_tpu_torch.models.bsp import BSPIndex
+from vector_database_tpu_torch.ops import cuda_build
 from vector_database_tpu_torch.ops.exact import (
     as_f32,
     atleast_2d,
@@ -63,6 +71,96 @@ def exact_d2_blocked(queries, vectors: torch.Tensor) -> torch.Tensor:
         exact_sq_dists(q, vectors[s : s + block])
         for s in range(0, n, block)
     ], dim=1)
+
+
+def delta_knn_reference(queries, delta, live, k: int):
+    """Plain version of ``delta_knn``: ``exact_d2_blocked`` over every
+    slot, +inf where ``live`` is False, then ``scan_knn._lowest_k``. Its
+    places past the live rows hold +inf with the lowest dead slots."""
+    mask = torch.as_tensor(live, device=delta.device)
+    d2 = torch.where(mask, exact_d2_blocked(queries, delta), float("inf"))
+    return _lowest_k(d2, min(k, delta.shape[0]))
+
+
+def _declare_delta_knn(lib):
+    lib.delta_knn_scratch.argtypes = [ctypes.c_int] * 3
+    lib.delta_knn_scratch.restype = ctypes.c_longlong
+    lib.delta_knn_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+        + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.delta_knn_launch.restype = ctypes.c_int
+
+
+def _load_delta_knn():
+    return cuda_build.load("delta_knn", _declare_delta_knn)
+
+
+def delta_knn(queries: torch.Tensor, delta: torch.Tensor, live, k: int):
+    """The ``k`` nearest live rows of ``delta`` to each query: ``(d2
+    [Q, kk], slots [Q, kk])``, kk = min(k, R), f32 squared distances and
+    int64 rows of ``delta``, ascending by (distance, slot): equal
+    distances keep the lower slot, also on a tie at the k-th place.
+
+    ``queries`` [Q, D] and ``delta`` [R, D] are float32 on one device;
+    ``live`` is an [R] bool mask on the host. Each distance is the f32
+    difference form, a subtraction and a square added a dimension, in
+    ascending order.
+
+    On a CUDA device this launches ``csrc/delta_knn.cu`` (built with
+    ``nvcc`` at first use), for any ``k``: places past the live rows hold
+    (+inf, -1), and ``COUNTERS["dynamic.delta_knn.launches"]`` counts its
+    kernels: two a pass of up to 128 places, the pass over the split rows
+    and the join of the splits. On the CPU ``delta_knn_reference``
+    runs."""
+    if not (isinstance(queries, torch.Tensor)
+            and isinstance(delta, torch.Tensor)):
+        raise TypeError("delta_knn: queries and delta must be tensors")
+    if queries.dim() != 2 or delta.dim() != 2 or \
+            queries.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError("delta_knn: queries [Q, D] and delta [R, D] must "
+                         "be float32 matrices")
+    if queries.shape[1] != delta.shape[1]:
+        raise ValueError(f"delta_knn: queries have {queries.shape[1]} "
+                         f"dimensions, the delta {delta.shape[1]}")
+    if queries.device != delta.device:
+        raise ValueError(f"delta_knn: queries on {queries.device}, the "
+                         f"delta on {delta.device}")
+    live = np.asarray(live)
+    if live.dtype != np.bool_ or live.shape != (delta.shape[0],):
+        raise ValueError(f"delta_knn: live must be a ({delta.shape[0]},) "
+                         f"bool mask, got {live.dtype} {live.shape}")
+    if k < 1:
+        raise ValueError(f"delta_knn: k must be >= 1, got {k}")
+    kk = min(k, delta.shape[0])
+    dev = delta.device
+    if dev.type != "cuda":
+        return delta_knn_reference(queries, delta, live, kk)
+    nq, d = queries.shape
+    out_d = torch.empty((nq, kk), dtype=torch.float32, device=dev)
+    out_s = torch.empty((nq, kk), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return out_d, out_s
+    if d == 0:  # every distance 0, as over one zero column
+        queries, delta = (queries.new_zeros((nq, 1)),
+                          delta.new_zeros((delta.shape[0], 1)))
+    queries, delta = queries.contiguous(), delta.contiguous()
+    slots = torch.from_numpy(np.flatnonzero(live).astype(np.int32)).to(dev)
+    lib = _load_delta_knn()
+    with torch.cuda.device(dev):
+        places = lib.delta_knn_scratch(nq, slots.shape[0], kk)
+        if places < 0:
+            raise RuntimeError(f"delta_knn: CUDA error {-places}")
+        part_d = torch.empty(places, dtype=torch.float32, device=dev)
+        part_s = torch.empty(places, dtype=torch.int32, device=dev)
+        n = lib.delta_knn_launch(
+            queries.data_ptr(), delta.data_ptr(), slots.data_ptr(), nq,
+            queries.shape[1], slots.shape[0], kk, out_d.data_ptr(),
+            out_s.data_ptr(), part_d.data_ptr(), part_s.data_ptr(), places,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if n < 0:
+        raise RuntimeError(f"delta_knn launch failed: CUDA error {-n}")
+    COUNTERS["dynamic.delta_knn.launches"] += n
+    return out_d, out_s
 
 
 class DynamicIndex:
@@ -458,12 +556,12 @@ class DynamicIndex:
     @spanned("vdb_torch.dynamic.merge")
     def merge_delta(self, queries, ids, d2, k: int, *, allowed=None):
         """Merge the delta rows into a main-segment top-k ``(ids [Q, k],
-        d2 [Q, k])``, on the index's device: exact f32 distances to the
-        padded delta, the delta's ``k`` best (equal distances keep the
-        earlier add), then one stable sort of main and delta together,
-        so main rows lead delta rows on equal distances. Only the merged
-        ``[Q, k]`` comes back to the host. Delta results are exact in
-        every serving mode."""
+        d2 [Q, k])``, on the index's device: the live delta rows' ``k``
+        best by exact f32 distances (``delta_knn``; equal distances keep
+        the earlier add), then one stable sort of main and delta
+        together, so main rows lead delta rows on equal distances. Only
+        the merged ``[Q, k]`` comes back to the host. Delta results are
+        exact in every serving mode."""
         dmat, dids = self._delta_view()
         if dmat is None:
             return ids, d2
@@ -473,14 +571,13 @@ class DynamicIndex:
             live &= np.isin(dids, allowed)
         COUNTERS["dynamic.delta_rows"] += int(live.sum())
         COUNTERS["dynamic.delta_slots"] += dids.size
-        dd2 = torch.where(torch.from_numpy(live).to(dev),
-                          exact_d2_blocked(queries, dmat), float("inf"))
-        dd2, pos = _lowest_k(dd2, min(k, dids.size))
+        dd2, pos = delta_knn(atleast_2d(as_f32(queries, dev)), dmat, live, k)
         cat_d = torch.cat([
             torch.as_tensor(d2, dtype=torch.float32, device=dev), dd2], 1)
+        # the kernel's empty places (+inf) hold slot -1; +inf gives id -1
         cat_i = torch.cat([
             torch.as_tensor(ids, dtype=torch.int64, device=dev),
-            torch.from_numpy(dids).to(dev)[pos]], 1)
+            torch.from_numpy(dids).to(dev)[pos.clamp(min=0)]], 1)
         d2, order = torch.sort(cat_d, dim=1, stable=True)
         d2 = d2[:, :k]
         ids = torch.where(torch.isfinite(d2), cat_i.gather(1, order[:, :k]),

@@ -41,7 +41,9 @@ import torch.autograd.profiler as _autograd_profiler
 # the segment-moments kernel's launches (one a level of a fused build
 # on the card), and ``DynamicIndex``'s mutations: rows added and removed,
 # rebuilds of its main view, the live delta rows merged and the padded
-# delta capacity they were merged in (summed over merges), compactions.
+# delta capacity they were merged in (summed over merges), compactions,
+# and the delta k-NN kernels' launches (two a pass of 128 places of a
+# merge on the card: the pass and the join of its splits).
 COUNTERS = dict.fromkeys((
     "scan.launches.bf16",
     "scan.launches.int8f",
@@ -55,6 +57,7 @@ COUNTERS = dict.fromkeys((
     "dynamic.delta_rows",
     "dynamic.delta_slots",
     "dynamic.compactions",
+    "dynamic.delta_knn.launches",
 ), 0)
 
 _OFF = contextlib.nullcontext()
