@@ -151,7 +151,7 @@ Phases (each raises on failure; nothing is caught):
    once and written once at the card's memory rate), and each version's
    largest error against float64 sums in ulps of the segment's sum of
    |x|; the kernel's launch count must rise with each call.
-17. the delta merge's k-NN kernel (``dynamic.delta_knn``) at the churn
+17. the delta merge's k-NN kernel (``ops.delta_knn``) at the churn
    cell's shape: DELTA_Q = 10,000 queries (half near-duplicates of live
    rows, noise 0.002 a dimension) against DELTA_R = 16,384 padded slots
    of unit rows, DELTA_LIVE = 10,000 live, D = 96, k = 10: kernel and
@@ -412,7 +412,7 @@ def _dynamic_phase(dev):
     t0 = time.perf_counter()
     idx.knn(test, K, packed=True)
     out["first_packed_s"] = time.perf_counter() - t0
-    base = idx._packed_base[1]
+    base = idx._main.pack
     print(f"[dynamic] {N}x{D} leaf {LEAF}: construct "
           f"{out['construct_s']:.3f} s; first packed batch q={Q} (pack "
           f"included) {out['first_packed_s']:.3f} s")
@@ -427,13 +427,13 @@ def _dynamic_phase(dev):
     t0 = time.perf_counter()
     fresh_ids = idx.add(fresh)
     out["add_s"] = time.perf_counter() - t0
-    if idx._delta_size() != ADD or len(idx) != N - REMOVE + ADD:
+    if idx._delta.size != ADD or len(idx) != N - REMOVE + ADD:
         raise AssertionError("the adds did not stay in the delta")
 
     t0 = time.perf_counter()
     ids, d2 = idx.knn(test, K, packed=True)
     out["first_packed_after_remove_s"] = time.perf_counter() - t0
-    if idx._packed_base[1] is not base or idx._packed[1].vb is not base.vb:
+    if idx._main.pack is not base or idx._main_view().pack.vb is not base.vb:
         raise AssertionError("the removal rebuilt the base pack")
     out["packed_ms"] = _host_ms(lambda: idx.knn(test, K, packed=True), REPS)
     q_dev = torch.as_tensor(test, device=dev)
@@ -499,7 +499,7 @@ def _dynamic_phase(dev):
           f"{out['exact_ms']:.3f} ms")
     del live, truth_pos, truth_d2
 
-    masked = idx._packed[1]
+    masked = idx._main_view().pack
     t0 = time.perf_counter()
     idx.compact()
     torch.cuda.synchronize()
@@ -1826,7 +1826,7 @@ def _delta_knn_phase(dev):
     import numpy as np
     import torch
 
-    from vector_database_tpu_torch import dynamic as dyn
+    from vector_database_tpu_torch.ops import delta_knn as tdk
     from vector_database_tpu_torch.utils.profiling import COUNTERS
 
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -1843,25 +1843,25 @@ def _delta_knn_phase(dev):
         rows[torch.randint(0, DELTA_LIVE, (DELTA_Q - half,), generator=g,
                            device=dev)].roll(1, dims=1)])
     before = COUNTERS["dynamic.delta_knn.launches"]
-    k_ms = _ms(lambda: dyn.delta_knn(q, delta, live, K), REPS)
+    k_ms = _ms(lambda: tdk.delta_knn(q, delta, live, K), REPS)
     launches = COUNTERS["dynamic.delta_knn.launches"] - before
     per_call = launches // (REPS + 1)
     if launches < 1 or launches != per_call * (REPS + 1):
         raise AssertionError(f"{launches} delta_knn launches in {REPS + 1} "
                              f"calls")
-    p_ms = _ms(lambda: dyn.delta_knn_reference(q, delta, live, K), REPS)
+    p_ms = _ms(lambda: tdk.delta_knn_reference(q, delta, live, K), REPS)
     lib_ms = _ms(lambda: torch.topk(torch.cdist(q, rows), K, dim=1,
                                     largest=False), REPS)
 
     def f64(slots):
         return ((q.double()[:, None, :] - delta.double()[slots]) ** 2).sum(-1)
 
-    got_d, got_s = dyn.delta_knn(q, delta, live, K)
+    got_d, got_s = tdk.delta_knn(q, delta, live, K)
     exact = f64(got_s)
     rel = float(((got_d.double() - exact).abs() / exact).max())
     if rel > 2e-5:
         raise AssertionError(f"delta_knn distance off float64 by {rel}")
-    want_d, want_s = dyn.delta_knn_reference(q, delta, live, K + 1)
+    want_d, want_s = tdk.delta_knn_reference(q, delta, live, K + 1)
     want_exact = f64(want_s[:, :K])
     prel = float(((want_d[:, :K].double() - want_exact).abs()
                   / want_exact).max())
@@ -1871,8 +1871,8 @@ def _delta_knn_phase(dev):
         raise AssertionError("delta_knn ids differ from the plain "
                              "version's at a clear k-th place")
     qi, di = torch.round(q * 2), torch.round(delta * 2)
-    ki = dyn.delta_knn(qi, di, live, K)
-    pi = dyn.delta_knn_reference(qi, di, live, K)
+    ki = tdk.delta_knn(qi, di, live, K)
+    pi = tdk.delta_knn_reference(qi, di, live, K)
     if not (torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])):
         raise AssertionError("delta_knn differs from the plain version on "
                              "integer rows")
@@ -2015,11 +2015,11 @@ def main():
         pallas_scan_knn_packed_rt,
         search,
     )
-    from vector_database_tpu_torch import dynamic
     from vector_database_tpu_torch.benchmarks import probe_kernel_ab as pab
     from vector_database_tpu_torch.ops import bucket_scan as bs
     from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
     from vector_database_tpu_torch.ops import cuda_build, sorted_build
+    from vector_database_tpu_torch.ops import delta_knn as tdk
     from vector_database_tpu_torch.ops.packed_knn import (
         _block_map,
         _scan_queries,
@@ -2047,9 +2047,8 @@ def main():
              f"partly cached ({found} of {len(sources)} libraries found)")
     t0 = time.perf_counter()
     cuda_build.build(*sources)
-    for mod in (bs, bi, pab, sorted_build):
+    for mod in (bs, bi, pab, sorted_build, tdk):
         mod._load()
-    dynamic._load_delta_knn()
     print(f"[build] vector_database_tpu_torch/csrc: bucket_scan_sm90.cu, "
           f"bucket_scan_i8.cu, probe_kernel_ab.cu (each with sm90.cuh), "
           f"segment_moments.cu, delta_knn.cu, one nvcc each, {start}: "

@@ -948,23 +948,23 @@ def test_delta_knn_kernel_equals_plain_on_integer_rows(
     of 128 places (each pass after the first takes the pairs after the
     last place of the one before). The places past the live rows hold
     (+inf, -1). A second call gives the same bits."""
-    from vector_database_tpu_torch import dynamic as dyn
+    from vector_database_tpu_torch.ops import delta_knn as tdk
 
     queries, delta, live = _int_delta_case(cuda_device, q + r + d, q, r, d,
                                            span, live_share)
     before = COUNTERS["dynamic.delta_knn.launches"]
-    got_d, got_s = dyn.delta_knn(queries, delta, live, k)
+    got_d, got_s = tdk.delta_knn(queries, delta, live, k)
     torch.cuda.synchronize()
     passes = -(-min(k, r) // 128)
     assert COUNTERS["dynamic.delta_knn.launches"] - before == 2 * passes
-    want_d, want_s = dyn.delta_knn_reference(queries, delta, live, k)
+    want_d, want_s = tdk.delta_knn_reference(queries, delta, live, k)
     assert got_d.shape == got_s.shape == (q, min(k, r))
     assert torch.equal(got_d, want_d)
     filled = torch.isfinite(want_d)
     assert torch.equal(got_s[filled], want_s[filled])
     assert (got_s[~filled] == -1).all()
     assert int(filled.sum(1).min()) == min(k, int(live.sum()))
-    again = dyn.delta_knn(queries, delta, live, k)
+    again = tdk.delta_knn(queries, delta, live, k)
     assert torch.equal(again[0], got_d) and torch.equal(again[1], got_s)
 
 
@@ -977,7 +977,7 @@ def test_delta_knn_kernel_on_float_rows_on_card(cuda_device):
     float64 difference form of its row, and the ids those of the plain
     version wherever the k-th and (k+1)-th plain distances differ by
     more than that."""
-    from vector_database_tpu_torch import dynamic as dyn
+    from vector_database_tpu_torch.ops import delta_knn as tdk
 
     dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(20)
@@ -993,12 +993,12 @@ def test_delta_knn_kernel_on_float_rows_on_card(cuda_device):
         rows[pick] + 0.002 * torch.randn((q // 2, d), generator=g,
                                          device=dev),
         torch.randn((q - q // 2, d), generator=g, device=dev) * 0.1])
-    got_d, got_s = dyn.delta_knn(queries, delta, live, k)
+    got_d, got_s = tdk.delta_knn(queries, delta, live, k)
     assert (got_s >= 0).all() and (got_s < n_live).all()
     exact = ((queries.double()[:, None, :] - delta.double()[got_s]) ** 2
              ).sum(-1)
     assert ((got_d.double() - exact).abs() <= 2e-5 * exact).all()
-    want_d, want_s = dyn.delta_knn_reference(queries, delta, live, k + 1)
+    want_d, want_s = tdk.delta_knn_reference(queries, delta, live, k + 1)
     clear = (want_d[:, k] - want_d[:, k - 1]) > 2e-5 * want_d[:, k]
     assert float(clear.float().mean()) > 0.99
     assert torch.equal(got_s[clear].sort(1).values,

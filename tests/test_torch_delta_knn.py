@@ -1,4 +1,4 @@
-"""``dynamic.delta_knn``, the delta merge's k best, on the CPU.
+"""``ops.delta_knn``, the delta merge's k best, on the CPU.
 
 On CPU tensors the wrapper runs its plain version: the blocked
 difference-form distances (``exact_d2_blocked``), +inf on dead slots,
@@ -7,7 +7,8 @@ replaced in ``merge_delta`` and to a numpy oracle that sorts the live
 rows by (distance, slot), on integer rows where every distance is exact
 and many tie, also at the k-th place, for k within a pass of the kernel
 (128 places) and past it. They check that a CPU call never loads the
-kernel's library, whatever ``k``, and the arguments the wrapper refuses.
+kernel's library, whatever ``k``, that live slots give the live mask's
+answer, and the arguments the wrapper refuses.
 The kernel itself is held to the plain version on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from vector_database_tpu_torch import DynamicIndex
-from vector_database_tpu_torch import dynamic as dyn
+from vector_database_tpu_torch.ops import delta_knn as tdk
+from vector_database_tpu_torch.ops.exact import exact_d2_blocked
 from vector_database_tpu_torch.ops.scan_knn import _lowest_k
 from vector_database_tpu_torch.utils.profiling import COUNTERS
 
@@ -58,9 +60,9 @@ def _oracle(queries, delta, live, k):
 def test_plain_path_equals_blocked_mask_and_lowest_k(q, r, d, span,
                                                      live_share, k):
     queries, delta, live = _case(q + r + d, q, r, d, span, live_share)
-    got_d, got_s = dyn.delta_knn(queries, delta, live, k)
+    got_d, got_s = tdk.delta_knn(queries, delta, live, k)
     want_d, want_s = _lowest_k(torch.where(
-        torch.from_numpy(live), dyn.exact_d2_blocked(queries, delta),
+        torch.from_numpy(live), exact_d2_blocked(queries, delta),
         float("inf")), k)
     assert torch.equal(got_d, want_d) and torch.equal(got_s, want_s)
     assert got_d.shape == (q, k) and got_s.dtype == torch.int64
@@ -77,16 +79,27 @@ def test_plain_path_equals_blocked_mask_and_lowest_k(q, r, d, span,
 
 def test_empty_live_set_gives_only_empty_places():
     queries, delta, _ = _case(1, 6, 64, 8, 2, 1.0)
-    d2, slots = dyn.delta_knn(queries, delta, np.zeros(64, bool), 10)
+    d2, slots = tdk.delta_knn(queries, delta, np.zeros(64, bool), 10)
     assert torch.isinf(d2).all() and d2.shape == (6, 10)
     assert ((slots >= 0) & (slots < 64)).all()
 
 
+@pytest.mark.parametrize("k", [3, 40])
+def test_live_slots_equal_the_live_mask(k):
+    """``live`` given as the ascending int32 slots, as ``merge_delta``
+    passes them, gives the mask's answer bit for bit."""
+    queries, delta, live = _case(3 + k, 9, 200, 12, 1, 0.4)
+    slots = torch.from_numpy(np.flatnonzero(live).astype(np.int32))
+    got = tdk.delta_knn(queries, delta, slots, k)
+    want = tdk.delta_knn(queries, delta, live, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_k_over_the_slots_gives_one_place_a_slot():
     queries, delta, live = _case(2, 4, 20, 8, 2, 0.5)
-    d2, slots = dyn.delta_knn(queries, delta, live, 50)
+    d2, slots = tdk.delta_knn(queries, delta, live, 50)
     assert d2.shape == slots.shape == (4, 20)
-    want = dyn.delta_knn_reference(queries, delta, live, 50)
+    want = tdk.delta_knn_reference(queries, delta, live, 50)
     assert torch.equal(d2, want[0]) and torch.equal(slots, want[1])
 
 
@@ -95,17 +108,18 @@ def test_a_cpu_call_never_loads_the_kernel(monkeypatch, k):
     def refuse():
         raise AssertionError("the kernel's library was loaded")
 
-    monkeypatch.setattr(dyn, "_load_delta_knn", refuse)
+    monkeypatch.setattr(tdk, "_load", refuse)
     queries, delta, live = _case(4 + k, 3, 256, 8, 2, 0.7)
-    d2, slots = dyn.delta_knn(queries, delta, live, k)
-    want = dyn.delta_knn_reference(queries, delta, live, k)
+    d2, slots = tdk.delta_knn(queries, delta, live, k)
+    want = tdk.delta_knn_reference(queries, delta, live, k)
     assert torch.equal(d2, want[0]) and torch.equal(slots, want[1])
 
 
 @pytest.mark.parametrize("what", ["dtype", "rank", "dims", "devices",
                                   "delta_rank", "live_shape", "live_2d",
                                   "live_dtype", "k", "k_negative",
-                                  "not_a_tensor"])
+                                  "not_a_tensor", "slots_dtype",
+                                  "slots_2d"])
 def test_bad_arguments_raise(what):
     queries, delta, live = _case(6, 4, 32, 8, 2, 0.5)
     k = 3
@@ -129,10 +143,14 @@ def test_bad_arguments_raise(what):
         k = 0
     elif what == "k_negative":
         k = -4
+    elif what == "slots_dtype":
+        live = torch.from_numpy(np.flatnonzero(live))
+    elif what == "slots_2d":
+        live = torch.from_numpy(np.flatnonzero(live).astype(np.int32))[None]
     else:
         queries = queries.numpy()
     with pytest.raises((ValueError, TypeError)):
-        dyn.delta_knn(queries, delta, live, k)
+        tdk.delta_knn(queries, delta, live, k)
 
 
 def test_cpu_merge_launches_no_kernel():

@@ -74,10 +74,10 @@ def test_churn_sequence_matches_jax():
                j.knn(q, k=4, allowed_ids=allowed), "allowed")
         assert len(t) == len(j)
     # churn passed the 5% threshold on the way: both compacted alike
-    assert t._main_ids.size != 2500
-    np.testing.assert_array_equal(t._main_ids, j._main_ids)
+    assert t._main.ids.size != 2500
+    np.testing.assert_array_equal(t._main.ids, j._main_ids)
     np.testing.assert_array_equal(t._main_alive, j._main_alive)
-    assert t._delta_size() == len(j._delta_ids)
+    assert t._delta.size == len(j._delta_ids)
     t.add(q[:3])
     j.add(q[:3])
     for mode in modes:
@@ -85,44 +85,46 @@ def test_churn_sequence_matches_jax():
 
 
 def test_pack_identity_invariants():
-    """The main view is ``index.vectors`` itself; an add keeps the pack;
-    a removal keeps the base pack and only masks its norm row; the delta
-    is padded to a power-of-two capacity; ``compact`` starts a new base."""
+    """The main view is ``index.vectors`` itself; an add keeps both
+    epochs and the pack; a removal keeps the base pack's blocks and only
+    masks its norm row; the delta's capacity is 64, then 128; ``compact``
+    starts a new base."""
     rng = np.random.default_rng(6)
     v = _ints(rng, (3000, 8))
     q = _ints(rng, (8, 8))
     t = DynamicIndex(v, leaf_size=8, rebuild_fraction=10.0, device="cpu")
     j = JaxDynamicIndex(v, leaf_size=8, rebuild_fraction=10.0)
-    mat, _, mask = t._main_view()
-    assert mat is t._index.vectors and mask is None
+    view = t._main_view()
+    assert view.rows is t._main.index.vectors and view.mask is None
     t.knn(q, k=3, packed=True)
-    base = t._packed_base[1]
-    assert t._packed[1] is base  # unmasked epoch
+    base = t._main.pack
+    assert view.pack is base  # unmasked epoch
 
     target = np.full((1, 8), 0.5, np.float32)
+    main = t._main
     (tid,) = t.add(target)
     assert j.add(target)[0] == tid
     ids, d2 = t.knn(target, k=1, packed=True)
-    assert t._packed[1] is base and t._main_view()[0] is t._index.vectors
+    assert t._main is main and t._main_view() is view and view.pack is base
     assert ids[0, 0] == tid and d2[0, 0] == 0.0
-    dmat, dids = t._delta_view()
-    assert dmat.shape[0] == 64 and int((dids >= 0).sum()) == 1
+    assert t._delta.rows.shape[0] == 64 and t._delta.size == 1
     t.add(np.zeros((70, 8), np.float32))
-    assert t._delta_view()[0].shape[0] == 128
+    assert t._delta.rows.shape[0] == 128
 
     assert t.remove_ids([0, 1, tid]) == 3
     ids, _ = t.knn(q, k=3, packed=True)
-    assert t._packed_base[1] is base  # no repack
-    assert t._packed[1] is not base and t._packed[1].vb is base.vb
-    assert t._main_view()[0] is t._index.vectors
-    assert int(t._main_view()[2].sum()) == 2998
+    masked = t._main_view()
+    assert t._main is main and main.pack is base  # no repack
+    assert masked.pack is not base and masked.pack.vb is base.vb
+    assert masked.rows is t._main.index.vectors
+    assert int(masked.mask.sum()) == 2998
     assert not np.isin(ids, [0, 1, tid]).any()
     got, gd2 = t.knn(v[0:1], k=1, packed=True)
     assert got[0, 0] != 0
 
     t.compact()
     t.knn(q, k=3, packed=True)
-    assert t._packed_base[1].vb is not base.vb
+    assert t._main.pack.vb is not base.vb
 
 
 def test_min_probe_batch_guard(monkeypatch):
@@ -139,7 +141,7 @@ def test_min_probe_batch_guard(monkeypatch):
     assert inspect.signature(index.knn).parameters[
         "min_probe_batch"].default is None
     full = index.knn(queries, k=5, packed=True)
-    assert index._packed[1].vb.shape[0] > 1  # a real multi-block pack
+    assert index._main.pack.vb.shape[0] > 1  # a real multi-block pack
     calls = []
     real = packed_knn._block_map
 
@@ -337,7 +339,7 @@ def test_delta_ties_keep_the_earliest_adds_in_add_order(mode):
                             for s in range(0, 300, 50)])
     for s in range(0, 300, 50):
         jax_index.add(delta[s:s + 50])
-    assert index._delta_size() == 300
+    assert index._delta.size == 300
     all_ids = np.concatenate([np.arange(main.shape[0]), added])
     rows = np.vstack([main, delta])
     for k in (10, 120):
@@ -350,3 +352,106 @@ def test_delta_ties_keep_the_earliest_adds_in_add_order(mode):
                                           err_msg=str((k, i, mode)))
         _same_up_to_ties((ids, d2), jax_index.knn(queries, k=k, **mode),
                          (k, mode))
+
+
+def _capacity(n):
+    return max(64, 1 << (n - 1).bit_length())
+
+
+def test_delta_buffer_keeps_add_order_and_capacity():
+    """Across adds, ``remove_ids`` of delta rows and ``remove`` by
+    radius, the delta buffer holds the live rows in add order with their
+    ids, at the smallest power-of-two capacity >= max(64, size); its merge
+    equals, bit for bit, that of a fresh index given the same live rows
+    in one add (integer rows: many distances tie, so the slot order
+    decides)."""
+    rng = np.random.default_rng(11)
+    kw = dict(leaf_size=8, rebuild_fraction=100.0, device="cpu")
+    main = _ints(rng, (400, 6), span=2)
+    t = DynamicIndex(main, **kw)
+    live = {}
+    q = _ints(rng, (20, 6), span=2)
+    for step in range(5):
+        rows = _ints(rng, (40 * step + 30, 6), span=2)
+        live.update(zip(t.add(rows).tolist(), rows))
+        gone = rng.choice(list(live), 10, replace=False)
+        assert t.remove_ids(gone) == 10
+        for g in gone:
+            del live[int(g)]
+        point = _ints(rng, (6,), span=2)
+        hits = [i for i, r in live.items() if ((r - point) ** 2).sum() <= 1]
+        assert t.remove(point, 1.0) >= len(hits)
+        for g in hits:
+            del live[g]
+        delta = t._delta
+        assert delta.ids.tolist() == list(live)
+        assert delta.rows.shape[0] == _capacity(len(live))
+        np.testing.assert_array_equal(delta.live.numpy(),
+                                      np.stack(list(live.values())))
+        fresh = DynamicIndex(main, **kw)
+        remap = dict(zip(fresh.add(np.stack(list(live.values()))).tolist(),
+                         live))
+        remap[-1] = -1
+        for k in (5, 40):
+            empty = (np.full((20, k), -1, np.int64),
+                     np.full((20, k), np.inf, np.float32))
+            gi, gd = t.merge_delta(q, *empty, k)
+            fi, fd = fresh.merge_delta(q, *empty, k)
+            np.testing.assert_array_equal(gd, fd)
+            np.testing.assert_array_equal(
+                gi, np.vectorize(remap.get)(fi).reshape(gi.shape))
+            assert (gd[:, :-1] == gd[:, 1:]).any()
+
+
+def test_allowed_ids_mask_the_delta_as_jax():
+    """``allowed_ids=`` masks the delta rows as the JAX class does: the
+    same distances and tie groups, with only delta ids, only main ids,
+    or both allowed, after removals on both sides."""
+    rng = np.random.default_rng(12)
+    v = _ints(rng, (800, 8))
+    q = _ints(rng, (16, 8))
+    kw = dict(leaf_size=8, rebuild_fraction=100.0)
+    t = DynamicIndex(v, device="cpu", **kw)
+    j = JaxDynamicIndex(v, **kw)
+    for _ in range(3):
+        extra = _ints(rng, (40, 8))
+        _equal([t.add(extra)], [j.add(extra)], "add")
+    gone = np.asarray([3, 5, 801, 830, 899])
+    assert t.remove_ids(gone) == j.remove_ids(gone) == 5
+    delta_ids = np.arange(800, 920)
+    for allowed in (delta_ids[::3], np.arange(0, 800, 4),
+                    rng.choice(920, 200, replace=False)):
+        got = t.knn(q, k=6, allowed_ids=allowed)
+        _same_up_to_ties(got, j.knn(q, k=6, allowed_ids=allowed),
+                         allowed[:3])
+        served = got[0][got[0] >= 0]
+        assert np.isin(served, allowed).all()
+        assert not np.isin(served, gone).any()
+
+
+def test_forgotten_tombstones_serve_removed_rows_again():
+    """``_main_alive[:] = True`` then ``_invalidate_main()`` (how the
+    benchmark's ``no-tombstones`` control reaches the class) serves the
+    removed main rows again from the next request on, packed or not,
+    through one new removal epoch over the unmasked base pack."""
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
+
+    v = datasets.random_uniform(3000, 8, seed=91)
+    t = DynamicIndex(v, leaf_size=8, rebuild_fraction=10.0, device="cpu")
+    gone = np.arange(0, 3000, 7)
+    assert t.remove_ids(gone) == gone.size
+    modes = (dict(), dict(exact=False), dict(packed=True))
+    for mode in modes:
+        ids, _ = t.knn(v[gone[:20]], k=1, **mode)
+        assert not np.isin(ids, gone).any(), mode
+    views = COUNTERS["dynamic.main_views"]
+    t._main_alive[:] = True
+    t._invalidate_main()
+    for mode in modes:
+        ids, d2 = t.knn(v[gone[:20]], k=1, **mode)
+        np.testing.assert_array_equal(ids[:, 0], gone[:20],
+                                      err_msg=str(mode))
+        assert (d2[:, 0] < 1e-5).all()  # the scan's own rounding of 0
+    assert COUNTERS["dynamic.main_views"] == views + 1
+    view = t._main_view()
+    assert view.mask is None and view.pack is t._main.pack

@@ -99,7 +99,7 @@ def main(argv=None):
         t_scan = timed(scan_batch, args.reps)
         packed_batch()
         t_packed = timed(packed_batch, args.reps)
-        pack_obj = dyn._packed[1] if dyn._packed is not None else None
+        pack_obj = dyn._main.pack  # the base pack, served unmasked
 
         # add churn: one fresh row per epoch
         def add_one():
@@ -107,11 +107,7 @@ def main(argv=None):
 
         t_scan_add = epoch_first(add_one, scan_batch, args.epochs)
         t_packed_add = epoch_first(add_one, packed_batch, args.epochs)
-        pack_survived = bool(
-            pack_obj is not None
-            and dyn._packed is not None
-            and dyn._packed[1] is pack_obj
-        )
+        pack_survived = dyn._main_view().pack is pack_obj
 
         # remove churn: tombstone one main row per epoch
         rm_iter = iter(range(n))
@@ -121,10 +117,7 @@ def main(argv=None):
 
         t_scan_rm = epoch_first(remove_one, scan_batch, args.epochs)
         t_packed_rm = epoch_first(remove_one, packed_batch, args.epochs)
-        base_survived = bool(
-            dyn._packed_base is not None
-            and dyn._packed_base[0] is dyn._index
-        )
+        base_survived = dyn._main.pack is pack_obj
 
         denom = t_scan - t_packed
         crossover_rm = (

@@ -18,7 +18,7 @@ Each piece is timed alone, in microseconds per query:
     where the JAX harness timed the TPU's ``lax.approx_max_k``, which has
     no counterpart here);
   - ``rerank_us_per_q``: the ``[Q, k_scan * w, D]`` gather, exact f32
-    distances and the stable top-k of ``_scan_knn_packed_impl``;
+    distances and the stable top-k of ``pallas_scan_knn_packed``;
   - ``selection_us_per_q``: the pruned mode's block map,
     ``ops/packed_knn._block_map`` (at ``--probes``, else every block).
 

@@ -26,9 +26,8 @@ import numpy as np
 import torch
 
 from vector_database_tpu_torch.builder import build_index_fused
-from vector_database_tpu_torch.dynamic import exact_d2_blocked
 from vector_database_tpu_torch.models.bsp import BSPIndex
-from vector_database_tpu_torch.ops.exact import to_numpy
+from vector_database_tpu_torch.ops.exact import exact_d2_blocked, to_numpy
 from vector_database_tpu_torch.ops.packed_knn import (
     pack_database,
     pallas_scan_knn_packed,

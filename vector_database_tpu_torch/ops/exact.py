@@ -2,11 +2,14 @@
 
 Port of ``vector_database_tpu/ops/exact.py``. Every function keeps the
 form of its JAX counterpart: ``pairwise_sq_dists`` and ``exact_knn`` the
-matmul expansion, ``exact_sq_dists`` the difference form. Products are
-full f32: PyTorch may run an f32 matmul on the card in TF32 (about three
-decimal digits) when ``torch.backends.cuda.matmul.allow_tf32`` is set, so
-the oracle turns it off explicitly for its own products (``full_f32``)
-and restores the caller's setting afterwards.
+matmul expansion, ``exact_sq_dists`` the difference form, and
+``exact_d2_blocked`` (``vector_database_tpu/dynamic.py``'s
+``_exact_d2_blocked``, the mutable collections' exact fallback) the
+difference form in row blocks. Products are full f32: PyTorch may run
+an f32 matmul on the card in TF32 (about three decimal digits) when
+``torch.backends.cuda.matmul.allow_tf32`` is set, so the oracle turns it
+off explicitly for its own products (``full_f32``) and restores the
+caller's setting afterwards.
 """
 
 from __future__ import annotations
@@ -82,6 +85,23 @@ def exact_sq_dists(queries: torch.Tensor, vectors: torch.Tensor):
     on boundary points. O(Q*N*D) memory: tests only."""
     diff = queries[:, None, :] - vectors[None, :, :]
     return torch.sum(diff * diff, dim=-1)
+
+
+def exact_d2_blocked(queries, vectors: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``[Q, N]`` on the vectors' device by the tree
+    rerank's direct difference form, so exact fallbacks agree with the
+    tree on boundary rows; in blocks of at least 1,024 rows, whose
+    ``[Q, block, D]`` transient stays near 256 MB where ``Q`` allows."""
+    q = atleast_2d(as_f32(queries, vectors.device))
+    nq, d = q.shape
+    n = vectors.shape[0]
+    block = max(1024, (1 << 28) // max(1, nq * d * 4))
+    if n <= block:
+        return exact_sq_dists(q, vectors)
+    return torch.cat([
+        exact_sq_dists(q, vectors[s : s + block])
+        for s in range(0, n, block)
+    ], dim=1)
 
 
 def exact_ball(vectors, queries, radius, *, use_matmul: bool = False):

@@ -528,37 +528,10 @@ def _shortlist_rows(
     return rows if inv is None else rows[inv]
 
 
-def _scan_knn_packed_impl(
-    pack: PackedDB,
-    queries,
-    *,
-    k: int,
-    q_tile: int = 256,
-    oversample: int | None = None,
-    probes: int | None = None,
-    probes_max: int | None = None,
-    row_mask=None,
-):
-    """Exact-reranked k-NN over a packed database: ``(rows [Q, k],
-    sq_dists [Q, k])``; for ``metric="ip"`` packs the second output is
-    exact dots, highest first. Returned distances are exact f32 for
-    whatever rows come back; -1 / +inf pad. ``row_mask``: optional
-    ``[n]`` bool; rows where it is False score +inf in the rerank (pair
-    it with ``PackedDB.mask_rows``)."""
-    queries = atleast_2d(as_f32(queries, pack.device))
-    if pack.metric == "cosine":
-        queries = normalize_rows(queries)
-    short_rows = _shortlist_rows(
-        pack, queries, k=k, q_tile=q_tile, oversample=oversample,
-        probes=probes, probes_max=probes_max,
-    )
-    return _rerank(pack, queries, short_rows, k=k, row_mask=row_mask)
-
-
 @spanned("vdb_torch.knn.rerank")
 def _rerank(pack: PackedDB, queries, short_rows, *, k: int, row_mask=None):
     """The exact f32 rerank of the shortlist ``short_rows`` ``[Q, S]``:
-    ``(rows [Q, k], sq_dists [Q, k])`` as ``_scan_knn_packed_impl``
+    ``(rows [Q, k], sq_dists [Q, k])`` as ``pallas_scan_knn_packed``
     returns them."""
     n = pack.n
     safe = short_rows.clamp(0, n - 1)
@@ -602,14 +575,23 @@ def pallas_scan_knn_packed(
     probes_max: int | None = None,
     row_mask=None,
 ):
-    """k-NN over a packed database (full scan, or pruned with
-    ``probes``); see ``_scan_knn_packed_impl``. ``probes >= num_blocks``
-    (or None) is the full scan. ``probes_max`` (requires ``probes``)
-    selects the runtime-probes form, as ``pallas_scan_knn_packed_rt``."""
-    return _scan_knn_packed_impl(
+    """Exact-reranked k-NN over a packed database, full scan or pruned
+    with ``probes`` (``probes >= num_blocks`` or None is the full scan):
+    ``(rows [Q, k], sq_dists [Q, k])``; for ``metric="ip"`` packs the
+    second output is exact dots, highest first. Returned distances are
+    exact f32 for whatever rows come back; -1 / +inf pad. ``probes_max``
+    (requires ``probes``) selects the runtime-probes form, as
+    ``pallas_scan_knn_packed_rt``. ``row_mask``: optional ``[n]`` bool;
+    rows where it is False score +inf in the rerank (pair it with
+    ``PackedDB.mask_rows``)."""
+    queries = atleast_2d(as_f32(queries, pack.device))
+    if pack.metric == "cosine":
+        queries = normalize_rows(queries)
+    short_rows = _shortlist_rows(
         pack, queries, k=k, q_tile=q_tile, oversample=oversample,
-        probes=probes, probes_max=probes_max, row_mask=row_mask,
+        probes=probes, probes_max=probes_max,
     )
+    return _rerank(pack, queries, short_rows, k=k, row_mask=row_mask)
 
 
 def pallas_scan_knn_packed_rt(
@@ -628,7 +610,7 @@ def pallas_scan_knn_packed_rt(
     block map is built ``min(probes_max, nb)`` wide and the kernel walks
     its first ``p`` entries, so results equal the static call's bit for
     bit."""
-    return _scan_knn_packed_impl(
+    return pallas_scan_knn_packed(
         pack, queries, k=k, q_tile=q_tile, oversample=oversample,
         probes=probes, probes_max=probes_max, row_mask=row_mask,
     )

@@ -463,7 +463,7 @@ class ChunkedIndex:
         """Exact f32 rerank of the kernel's candidate shortlist on the
         HOST, gathering only the O(Q * k_scan * w) candidate rows from the
         (possibly memmapped) chunk vectors: the out-of-core twin of the
-        device rerank tail of ``_scan_knn_packed_impl``. ``qh`` must be in
+        device rerank tail of ``pallas_scan_knn_packed``. ``qh`` must be in
         the chunk's metric space (unit rows for cosine). numpy, the JAX
         package's arithmetic; the best ``k`` come from one stable sort of
         the keys, as on the device, where the JAX package's partial sort

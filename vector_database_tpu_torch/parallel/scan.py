@@ -28,9 +28,9 @@ from vector_database_tpu_torch.ops.exact import as_f32, atleast_2d
 from vector_database_tpu_torch.ops.packed_knn import (
     PackedDB,
     _round_up,
-    _scan_knn_packed_impl,
     _to_tensor,
     pack_database,
+    pallas_scan_knn_packed,
 )
 from vector_database_tpu_torch.parallel.forest import merge_topk
 from vector_database_tpu_torch.parallel.mesh import (
@@ -194,7 +194,7 @@ def sharded_scan_knn(
     queries = atleast_2d(as_f32(queries, db.device))
     if probes_max is not None and probes is None:
         raise ValueError("probes_max requires probes")
-    rows, key = _scan_knn_packed_impl(
+    rows, key = pallas_scan_knn_packed(
         db.local, queries, k=k, q_tile=q_tile, oversample=oversample,
         probes=probes, probes_max=probes_max,
     )
