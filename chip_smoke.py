@@ -147,10 +147,14 @@ Phases (each raises on failure; nothing is caught):
 16. the build's segment-moments kernel at the main path's shape (N x D
    clustered rows, every 4th row sampled), for one segment of every row
    (a build's first level) and for segments of 17 rows (~590k, the
-   deepest levels): kernel and plain version timed, the bound (bytes read
-   once and written once at the card's memory rate), and each version's
-   largest error against float64 sums in ulps of the segment's sum of
-   |x|; the kernel's launch count must rise with each call.
+   deepest levels), each read as the build reads it (through a row index
+   that ascends inside each segment), through a shuffled index and with
+   no index: kernel and plain version timed, the bound (bytes read once,
+   the index's 8 B a sample included, and written once at the card's
+   memory rate), and each version's largest error against float64 sums
+   in ulps of the segment's sum of |x|; through an index the kernel must
+   equal itself on the gathered rows bit for bit; the kernel's launch
+   count must rise with each call.
 17. the delta merge's k-NN kernel (``ops.delta_knn``) at the churn
    cell's shape: DELTA_Q = 10,000 queries (half near-duplicates of live
    rows, noise 0.002 a dimension) against DELTA_R = 16,384 padded slots
@@ -1742,77 +1746,122 @@ BENCH_BLOCK = 8192  # pack_database's block at 4096 buckets
 
 def _moments_phase(dev):
     """Phase 16: the segment-moments kernel at N x D, k = 4, over one
-    segment of every row and over segments of 17 rows; each case's numbers
-    (kernel, plain and library ms, bound, errors against float64 sums in
-    ulps of the segment's sum of |x|, launches) under its name. Raises
-    where the kernel's error passes the card test's summation-tree bound,
-    (1540 + n_s / 512) ulps, or where on integer-valued rows it differs
-    from the plain version by a bit."""
+    segment of every row and over segments of 17 rows, each read three
+    ways: through a row index that ascends inside each segment (the
+    build's own form: its partition is stable; for one segment the
+    identity), through a shuffled index, and without one. Each case's
+    numbers (kernel, plain and library ms, bound, errors against float64
+    sums in ulps of the segment's sum of |x|, launches) under its name:
+    the build's form at the top, the others under ``shuffled_index`` and
+    ``no_index``. Raises where the kernel's error passes the card test's
+    summation-tree bound, (1540 + n_s / 512) ulps, where on integer-valued
+    rows it differs from the plain version by a bit, or where through an
+    index it differs by a bit from itself on the gathered rows."""
     import torch
 
     from vector_database_tpu_torch.ops import sorted_build as sb
     from vector_database_tpu_torch.utils.profiling import COUNTERS
 
-    train, _, _, _ = _clustered(dev, N, SEED + 16)
-    k, f64 = 4, dict(dtype=torch.float64, device=dev)
-    xs32 = train[::k]
-    xs = xs32.double()
+    train, _, _, g = _clustered(dev, N, SEED + 16)
+    k, reps, f64 = 4, 20, dict(dtype=torch.float64, device=dev)
     xi = torch.clamp(torch.round(train), -3, 3)
     out = {}
     for name, rows in (("one_segment", N), ("rows17", 17)):
         s = -(-N // rows)
         start = torch.arange(s, dtype=torch.int64, device=dev) * rows
         cnt = torch.clamp(N - start, max=rows)
-        before = COUNTERS["build.moments.launches"]
-        k_ms = _ms(lambda: sb.segment_moments(train, start, cnt, k), REPS)
-        launches = COUNTERS["build.moments.launches"] - before
-        if launches != REPS + 1:
-            raise AssertionError(f"{launches} segment-moments launches in "
-                                 f"{REPS + 1} calls")
-        p_ms = _ms(lambda: sb.segment_moments_reference(train, start, cnt,
-                                                        k), REPS)
-        # the segments cover every row, so the samples are xs in order
+        # the segments cover every position, so the samples are those of
+        # positions 0, k, 2k, ... in order
         n_s = (start + cnt + k - 1) // k - (start + k - 1) // k
         seg = torch.repeat_interleave(torch.arange(s, device=dev), n_s)
-        # library yardstick: index_add_ of the f32 samples and their
-        # squares by a segment-id vector made beforehand (float atomics)
-        zeros = torch.zeros((s, D), dtype=torch.float32, device=dev)
-        lib_ms = _ms(lambda: (zeros.clone().index_add_(0, seg, xs32),
-                              zeros.clone().index_add_(0, seg, xs32 * xs32)),
-                     REPS)
+        shuffled = torch.randperm(N, generator=g, device=dev)
+        # sorted by (segment, row): each segment's rows ascend
+        at = torch.arange(N, device=dev)
+        ascending = torch.sort(at // rows * N + shuffled).values % N
         tol = (1540 + n_s[:, None].double() / 512) * 2.0 ** -24
-        err = {}
-        for label, fn in (("kernel", sb.segment_moments),
-                          ("plain", sb.segment_moments_reference)):
-            got = fn(train, start, cnt, k)
-            for i, v in enumerate((xs, xs * xs)):
-                ref = torch.zeros((s, D), **f64).index_add_(0, seg, v)
-                scale = torch.zeros((s, D), **f64).index_add_(0, seg,
-                                                              v.abs())
-                diff = (got[i].double() - ref).abs()
-                key = f"{label}_{'sum' if i == 0 else 'sumsq'}_err_ulps"
-                err[key] = float((diff / (scale * 2.0 ** -24)).max())
-                if label == "kernel" and not bool((diff <= tol * scale).all()):
+        zeros = torch.zeros((s, D), dtype=torch.float32, device=dev)
+        forms = {}
+        for form, idx in (("main_path", ascending),
+                          ("shuffled_index", shuffled), ("no_index", None)):
+            ik = None if idx is None else idx[::k].contiguous()
+
+            def sample():
+                return train[::k] if ik is None else train[ik]
+
+            def moments(x, fn=sb.segment_moments):
+                return fn(x, start, cnt, k, idx)
+
+            # library yardstick: the samples gathered, then index_add_ of
+            # them and their squares by a segment-id vector made
+            # beforehand (float atomics)
+            def library():
+                v = sample()
+                return (zeros.clone().index_add_(0, seg, v),
+                        zeros.clone().index_add_(0, seg, v * v))
+
+            before = COUNTERS["build.moments.launches"]
+            k_ms = _ms(lambda: moments(train), reps)
+            launches = COUNTERS["build.moments.launches"] - before
+            if launches != reps + 1:
+                raise AssertionError(f"{launches} segment-moments launches "
+                                     f"in {reps + 1} calls")
+            p_ms = _ms(lambda: moments(train, sb.segment_moments_reference),
+                       REPS)
+            lib_ms = _ms(library, REPS)
+            xs = sample().double()
+            err = {}
+            for label, fn in (("kernel", sb.segment_moments),
+                              ("plain", sb.segment_moments_reference)):
+                got = moments(train, fn)
+                for i, v in enumerate((xs, xs * xs)):
+                    ref = torch.zeros((s, D), **f64).index_add_(0, seg, v)
+                    scale = torch.zeros((s, D), **f64).index_add_(
+                        0, seg, v.abs())
+                    diff = (got[i].double() - ref).abs()
+                    key = f"{label}_{'sum' if i == 0 else 'sumsq'}_err_ulps"
+                    err[key] = float((diff / (scale * 2.0 ** -24)).max())
+                    if label == "kernel" and \
+                            not bool((diff <= tol * scale).all()):
+                        raise AssertionError(
+                            f"segment moments {name} {form}: {key} "
+                            f"{err[key]} passes the bound of (1540 + n_s / "
+                            f"512) ulps")
+            del xs
+            got = moments(xi)
+            want = moments(xi, sb.segment_moments_reference)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"segment moments {name} {form}: the "
+                                     f"kernel and the plain version differ "
+                                     f"on integer rows")
+            if idx is not None:
+                got = moments(train)
+                want = sb.segment_moments(train[idx], start, cnt, k)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
                     raise AssertionError(
-                        f"segment moments {name}: {key} {err[key]} passes "
-                        f"the bound of (1540 + n_s / 512) ulps")
-        got = sb.segment_moments(xi, start, cnt, k)
-        want = sb.segment_moments_reference(xi, start, cnt, k)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"segment moments {name}: the kernel and "
-                                 f"the plain version differ on integer rows")
-        nbytes = int(n_s.sum()) * D * 4 + 2 * s * D * 4 + 2 * s * 8
-        bound_ms = nbytes / PEAK_HBM * 1e3
-        out[name] = dict(segments=s, ms=k_ms, plain_ms=p_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by="bytes",
-                         pct_of_bound=100.0 * bound_ms / k_ms,
-                         launches=launches, integer_rows_equal=True, **err)
-        print(f"[moments] {name}: {s} segments, kernel {k_ms:.3f} ms, "
-              f"bound {bound_ms:.3f} ms ({100 * bound_ms / k_ms:.1f}%), "
-              f"plain {p_ms:.3f} ms, library {lib_ms:.3f} ms, errors {err}, "
-              f"integer rows equal")
-    del train, xs, xs32, xi
+                        f"segment moments {name} {form}: through the index "
+                        f"the kernel differs from itself on x[rows]")
+                del got, want
+            # the samples' rows, the index's 8 B a sample, the sums out
+            nbytes = int(n_s.sum()) * (D * 4 + (0 if idx is None else 8)) \
+                + 2 * s * D * 4 + 2 * s * 8
+            bound_ms = nbytes / PEAK_HBM * 1e3
+            forms[form] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by="bytes",
+                               pct_of_bound=100.0 * bound_ms / k_ms,
+                               launches=launches, integer_rows_equal=True,
+                               **err)
+            print(f"[moments] {name} {form}: {s} segments, kernel "
+                  f"{k_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                  f"({100 * bound_ms / k_ms:.1f}%), plain {p_ms:.3f} ms, "
+                  f"library {lib_ms:.3f} ms, errors {err}, integer rows "
+                  f"equal" + ("" if idx is None else ", equal to the "
+                              "kernel on the gathered rows"))
+        main = forms.pop("main_path")
+        out[name] = dict(segments=s, index="ascending by segment", **main,
+                         **forms)
+    del train, xi
     return out
 
 

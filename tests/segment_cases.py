@@ -2,8 +2,12 @@
 (``sorted_build.segment_moments``), shared by the CPU tests and the card
 tests (this module imports no JAX)."""
 
+import collections
+
 import numpy as np
+import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def ragged_segments(rng, n, s):
@@ -39,6 +43,30 @@ def ragged_segments(rng, n, s):
     return start, cnt
 
 
+def with_orders(cases):
+    """Each case (a tuple of parameters) read without a row index, under
+    its own id, and through each kind of row index (``row_index``), the
+    kind added to its id: ``pytest.param``s whose last value is the kind
+    (None without an index)."""
+    return [pytest.param(*case, order, id="-".join(
+                map(str, case if order is None else case + (order,))))
+            for case in cases for order in (None, "ascending", "shuffled")]
+
+
+def row_index(rng, start, cnt, n, order):
+    """A row index for the moments to read their rows through: None
+    (``order`` None), or a permutation of the ``n`` rows as an int64
+    tensor, in no order ("shuffled") or sorted inside each segment
+    ("ascending", the build's: its partition is stable)."""
+    if order is None:
+        return None
+    perm = rng.permutation(n)
+    if order == "ascending":
+        for a, c in zip(start, cnt):
+            perm[a:a + c].sort()
+    return torch.from_numpy(perm)
+
+
 def float64_moments(x, start, cnt, k):
     """``(sums, sumsq, abs_sums, n_samples)`` of each segment's samples
     (rows ``j * k`` inside it) in float64 from a ``[N, D]`` f32 tensor:
@@ -57,3 +85,19 @@ def float64_moments(x, start, cnt, k):
     for acc, part in zip(out, (v, v * v, v.abs())):
         acc.index_add_(0, seg, part)
     return (*out, n_s)
+
+
+class TensorsMade(TorchDispatchMode):
+    """Counts the tensors that the operations run under it make, by shape
+    (views left out; an in-place write counts as its target):
+    ``with TensorsMade() as made: ...``, then ``made.count[(n, d)]``."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, torch.Tensor) and not func.is_view:
+            self.count[tuple(out.shape)] += 1
+        return out

@@ -24,7 +24,8 @@ from vector_database_tpu_torch.ops.sorted_build import (
 )
 from vector_database_tpu_torch.utils import datasets
 
-from segment_cases import float64_moments, ragged_segments
+from segment_cases import (TensorsMade, float64_moments, ragged_segments,
+                           row_index, with_orders)
 
 torch.set_num_threads(2)
 
@@ -170,41 +171,67 @@ def test_prefix_sum_is_a_fixed_order_cumsum(shape):
                                   np.cumsum(ints.astype(np.float64), axis=-1))
 
 
-@pytest.mark.parametrize("d", [3, 96, 200])
-@pytest.mark.parametrize("k", [1, 4])
-def test_segment_moments_plain_version(k, d):
+@pytest.mark.parametrize("k,d,order", with_orders(
+    [(k, d) for k in (1, 4) for d in (3, 96, 200)]))
+def test_segment_moments_plain_version(k, d, order):
     """The plain segment moments against float64 on ragged segments with
     gaps between them, empty segments and (k = 4) segments that hold no
     sample. Each sum is the difference of two ``prefix_sum`` values, so its
     error stays within twice their bound: (1024 + ns / 1024 + 4) ulps of
     the running sum of |x| up to the segment's end, one more for the
     rounded squares. On integer-valued data the sums equal ``index_add_``'s
-    bit for bit. The wrapper runs the plain version on CPU tensors and has
-    none for another device."""
+    bit for bit. Through a row index (``order``: the build's, ascending
+    inside each segment, or one in no order) they are the moments of the
+    rows it gathers, bit for bit. The wrapper runs the plain version on
+    CPU tensors and has none for another device."""
     rng = np.random.default_rng(100 * k + d)
     n, s = 3000, 60
     start, cnt = ragged_segments(rng, n, s)
     st, ct = torch.from_numpy(start), torch.from_numpy(cnt)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
-    sums, sumsq = segment_moments_reference(x, st, ct, k)
+    rows = row_index(rng, start, cnt, n, order)
+    xr = x if rows is None else x[rows]
+    sums, sumsq = segment_moments_reference(x, st, ct, k, rows)
     assert sums.shape == sumsq.shape == (s, d)
-    ref, ref2, _, n_s = float64_moments(x, start, cnt, k)
+    ref, ref2, _, n_s = float64_moments(xr, start, cnt, k)
     assert (cnt == 0).any()
     assert k == 1 or ((n_s.numpy() == 0) & (cnt > 0)).any()
     ns = -(-n // k)
-    run = torch.cumsum(x[::k].double().abs(), 0)
-    run2 = torch.cumsum(x[::k].double() ** 2, 0)
+    run = torch.cumsum(xr[::k].double().abs(), 0)
+    run2 = torch.cumsum(xr[::k].double() ** 2, 0)
     end = torch.clamp(-(-(st + ct) // k) - 1, min=0)
     ulps = (1024 + ns / 1024 + 4) * 2.0 ** -24
     assert ((sums.double() - ref).abs() <= 2 * ulps * run[end]).all()
     assert ((sumsq.double() - ref2).abs() <=
             2 * (ulps + 2.0 ** -24) * run2[end]).all()
-    assert torch.equal(segment_moments(x, st, ct, k)[0], sums)
+    assert torch.equal(segment_moments(x, st, ct, k, rows)[0], sums)
+    if rows is not None:
+        want = segment_moments_reference(xr, st, ct, k)
+        assert torch.equal(sums, want[0]) and torch.equal(sumsq, want[1])
 
     xi = torch.round(x * 3)
-    isums, isumsq = segment_moments_reference(xi, st, ct, k)
-    iref, iref2, _, _ = float64_moments(xi, start, cnt, k)
+    isums, isumsq = segment_moments_reference(xi, st, ct, k, rows)
+    iref, iref2, _, _ = float64_moments(xi if rows is None else xi[rows],
+                                        start, cnt, k)
     assert torch.equal(isums, iref.float())
     assert torch.equal(isumsq, iref2.float())
     with pytest.raises(RuntimeError, match="no kernel"):
         segment_moments(x.to("meta"), st.to("meta"), ct.to("meta"), k)
+
+
+@pytest.mark.parametrize("leaf_size", [1, 16])
+def test_fused_build_gathers_the_rows_once(leaf_size):
+    """The levels move a row index, not the rows: whatever the depth, a
+    fused build makes one tensor of whole rows, the leaf-major matrix,
+    and that matrix is the input's rows in ``orig_row``'s order. On the
+    CPU the plain moments gather their samples, every 4th row, once a
+    level; the card's kernel reads them through the index."""
+    n, d = 4000, 6
+    v = torch.from_numpy(datasets.random_uniform(n, d, seed=3))
+    with TensorsMade() as made:
+        index = build_index_fused(v, device="cpu", leaf_size=leaf_size,
+                                  stats_subsample=4)
+    assert index.depth > 1
+    assert made.count[(n, d)] == 1
+    assert made.count[(n // 4, d)] == index.depth
+    assert torch.equal(index.vectors, v[index.orig_row.long()])

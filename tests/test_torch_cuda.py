@@ -53,7 +53,8 @@ from vector_database_tpu_torch.ops import bucket_scan_i8 as tbi
 from vector_database_tpu_torch.ops import sorted_build as tsb
 from vector_database_tpu_torch.utils.profiling import COUNTERS
 
-from segment_cases import float64_moments, ragged_segments
+from segment_cases import (TensorsMade, float64_moments, ragged_segments,
+                           row_index, with_orders)
 
 
 @pytest.fixture
@@ -457,7 +458,7 @@ def test_build_gives_one_tree_per_input_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,s,k", [
+@pytest.mark.parametrize("n,d,s,k,order", with_orders([
     (1_000_000, 96, 1, 4),
     (1_000_000, 96, 2, 4),
     (1_000_000, 96, 1000, 4),
@@ -467,10 +468,11 @@ def test_build_gives_one_tree_per_input_on_card(cuda_device):
     (20_000, 2052, 300, 4),  # 1026 float4 columns of partials: two passes
     (20_000, 515, 300, 1),  # 1030 float columns of partials: two passes
     (20_000, 3, 300, 1),
+    (20_000, 99, 300, 4),  # scalar lanes
     (5_000, 96, 50, 1),
     (100, 96, 7, 4),
-])
-def test_segment_moments_kernel_on_card(cuda_device, n, d, s, k):
+]))
+def test_segment_moments_kernel_on_card(cuda_device, n, d, s, k, order):
     """The segment-moments kernel on ragged segments with gaps, empty
     segments and segments holding no sample, against float64 sums. Each
     value reaches its segment's sum through at most 512 additions in its
@@ -479,25 +481,35 @@ def test_segment_moments_kernel_on_card(cuda_device, n, d, s, k):
     |x| (the bound of a summation tree of that height; the squares, formed
     in fused multiply-adds, within as many ulps of their sum). A second
     call gives the same bits. On integer-valued data (squares summing below
-    2^24) it equals the plain version bit for bit."""
+    2^24) it equals the plain version bit for bit. Through a row index
+    (``order``: the build's, ascending inside each segment, or one in no
+    order) it adds in the same order: its sums are its sums on the
+    gathered rows, bit for bit, with the float4 lanes and the scalar
+    ones."""
     rng = np.random.default_rng(n + d + s + k)
     start, cnt = ragged_segments(rng, n, s)
     st = torch.from_numpy(start).to(cuda_device)
     ct = torch.from_numpy(cnt).to(cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     x = torch.randn((n, d), generator=g, device=cuda_device)
-    sums, sumsq = tsb.segment_moments(x, st, ct, k)
+    rows = row_index(rng, start, cnt, n, order)
+    rows = None if rows is None else rows.to(cuda_device)
+    xr = x if rows is None else x[rows]
+    sums, sumsq = tsb.segment_moments(x, st, ct, k, rows)
     torch.cuda.synchronize()
-    ref, ref2, abs_sums, n_s = float64_moments(x, start, cnt, k)
+    ref, ref2, abs_sums, n_s = float64_moments(xr, start, cnt, k)
     ulps = (1540 + n_s[:, None] / 512) * 2.0 ** -24
     assert ((sums.cpu().double() - ref).abs() <= ulps * abs_sums).all()
     assert ((sumsq.cpu().double() - ref2).abs() <= ulps * ref2).all()
-    again = tsb.segment_moments(x, st, ct, k)
+    again = tsb.segment_moments(x, st, ct, k, rows)
     assert torch.equal(again[0], sums) and torch.equal(again[1], sumsq)
+    if rows is not None:
+        want = tsb.segment_moments(xr, st, ct, k)
+        assert torch.equal(want[0], sums) and torch.equal(want[1], sumsq)
 
     xi = torch.clamp(torch.round(x), -3, 3)
-    got = tsb.segment_moments(xi, st, ct, k)
-    want = tsb.segment_moments_reference(xi, st, ct, k)
+    got = tsb.segment_moments(xi, st, ct, k, rows)
+    want = tsb.segment_moments_reference(xi, st, ct, k, rows)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -505,13 +517,20 @@ def test_segment_moments_kernel_on_card(cuda_device, n, d, s, k):
 def test_fused_build_launches_the_moments_kernel_once_a_level_on_card(
         cuda_device):
     """Every level of a fused build on the card ranks its dimensions with
-    the segment-moments kernel: its launch count rises by the depth."""
+    the segment-moments kernel: its launch count rises by the depth. The
+    levels move a row index, not the rows, and the kernel reads its
+    samples through it: the build makes one tensor of whole rows, the
+    leaf-major matrix, and none of the samples."""
     from vector_database_tpu_torch import build_index_fused
 
-    x, _ = _clustered_96(cuda_device, 1_000_000, 29)
+    n = 1_000_000
+    x, _ = _clustered_96(cuda_device, n, 29)
     before = COUNTERS["build.moments.launches"]
-    index = build_index_fused(x, leaf_size=16)
+    with TensorsMade() as made:
+        index = build_index_fused(x, leaf_size=16)
     assert COUNTERS["build.moments.launches"] - before == index.depth > 0
+    assert made.count[(n, 96)] == 1 and made.count[(n // 4, 96)] == 0
+    assert torch.equal(index.vectors, x[index.orig_row.long()])
 
 
 @pytest.mark.cuda

@@ -103,9 +103,12 @@ def test_a_build_is_a_span_of_levels_and_a_pack_a_span():
     index, roots = _profiled(
         lambda: build_index_fused(rows, leaf_size=8, device=CPU))
     assert _names(roots) == ["vdb_torch.build"]
+    # the levels, then the one gather of the leaf-major matrix, charged to
+    # the partition like the levels' moves of the row index
     levels = roots[0][1]
-    assert _names(levels) == ["vdb_torch.build.level"] * index.depth
-    for _, phases in levels:
+    assert _names(levels) == ["vdb_torch.build.level"] * index.depth + [
+        "vdb_torch.build.partition"]
+    for _, phases in levels[:-1]:
         assert _names(phases) == [
             "vdb_torch.build.moments", "vdb_torch.build.plane",
             "vdb_torch.build.sync", "vdb_torch.build.partition"]

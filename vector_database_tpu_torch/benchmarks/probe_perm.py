@@ -3,12 +3,13 @@
 ``benchmarks/probe_perm.py``).
 
 A level's partition computes ``dest[p]`` (where the row at position
-``p`` moves) and needs ``src = dest^-1`` (``src[i]``: which row lands at
-``i``) to gather the permuted arrays. Three torch forms of the JAX
-probe's candidates, each timed alone:
+``p`` moves); gathering the permuted arrays needs ``src = dest^-1``
+(``src[i]``: which row lands at ``i``). The port's build
+(``ops/sorted_build.py``) no longer inverts: it scatters its row index
+and segment ids by ``dest``. Three torch forms of the JAX probe's
+candidates, each timed alone:
 
-  scatter_ms       ``src[dest] = pos``: the port's production form
-                   (``ops/sorted_build.py``), one scatter with unique
+  scatter_ms       ``src[dest] = pos``: one scatter with unique
                    indices, where the TPU program sorted
   sort_key_val_ms  ``torch.sort(dest, stable=True).indices``: the sort
                    of ``(dest, pos)`` pairs, JAX's ``lax.sort_key_val``

@@ -261,8 +261,9 @@ def build_index_fused(
     become oversized leaves. ``stats_subsample``: rank split dimensions
     from every k-th row (default 4 above 500k rows, else 1); the split
     planes stay exact. ``donate``: accepted for the JAX signature. The
-    first level's permutation already makes a new tensor; the input lives
-    on while the caller holds it (``del`` it to free it). ``tie_break``:
+    build reads the rows in place and writes the leaf-major matrix as a
+    new tensor; the input lives on while the caller holds it (``del`` it
+    to free it). ``tie_break``:
     ``"positional"`` halves rows on the plane (and zero-variance
     segments) by rank; ``"mean_id"`` is the
     reference rule ``id > floor(mean(ids))`` with exact id sums, for

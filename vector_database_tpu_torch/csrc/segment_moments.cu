@@ -9,12 +9,19 @@
 //
 // What it computes, for every segment s < S, whose samples are
 //   lo = ceil(seg_start[s] / k), hi = ceil((seg_start[s] + seg_cnt[s]) / k)
-// (sample j is row j * k: the rows of x[::k] inside the segment):
-//   sums[s, d]  = the sum over j in [lo, hi) of x[j * k, d]
-//   sumsq[s, d] = the sum over j in [lo, hi) of x[j * k, d]^2
+// (sample j is row r(j) = j * k, or r(j) = rows[j * k] given a row index:
+// the rows of x[::k], or of x[rows[::k]], inside the segment):
+//   sums[s, d]  = the sum over j in [lo, hi) of x[r(j), d]
+//   sumsq[s, d] = the sum over j in [lo, hi) of x[r(j), d]^2
 // in f32, zeros where lo == hi. Segments lie in ascending order and do not
 // overlap (seg_start[s] + seg_cnt[s] <= seg_start[s + 1]), as the build
 // keeps them. Rows between segments (retired leaves) are never read.
+//
+// The build keeps its rows in place and partitions a row index instead
+// (rows); the partition is stable, so rows ascends inside each segment and
+// a warp's reads stay in row order, only sparser. The order of additions
+// is the same with or without the index: the sums on (x, rows) are those
+// on x[rows], bit for bit.
 //
 // What bounds it on an H100: bytes. Each sample row is read once and each
 // segment writes 2 D floats: at 10M x 96 with k = 4 a level reads at most
@@ -26,7 +33,10 @@
 //  * The samples are cut into tiles of TILE consecutive samples, one warp
 //    a tile. The lanes lie across a row, a float4 each where D % 4 == 0 and
 //    the rows start on 16-byte boundaries, so a warp reads a 384-byte row
-//    as three whole 128-byte lines, with U rows in flight.
+//    as three whole 128-byte lines, with U rows in flight. Given a row
+//    index, a warp first copies its tile's sample rows from it into
+//    shared memory (4 KB, the loads all in flight at once), so that no
+//    row's address waits on a load of its own.
 //  * A warp walks the segments that meet its tile in order (a binary
 //    search finds the first; the lanes fetch 32 segments' bounds at once),
 //    sums each one's rows of the tile in registers, in row order, and
@@ -117,9 +127,10 @@ struct Vec<4> {
 // One warp a tile of samples [t * TILE, min((t + 1) * TILE, ns)). head and
 // tail hold [T, 2 D] partials (sums, then sums of squares); tail_seg[t] is
 // the segment whose tail partial tile t wrote, or -1.
-template <int VEC>
+template <int VEC, bool ROWS>
 __global__ void __launch_bounds__(TILE_WARPS * 32)
-    moments_tiles(const float* __restrict__ x, long long sstride,
+    moments_tiles(const float* __restrict__ x,
+                  const long long* __restrict__ rows, long long sstride,
                   const long long* __restrict__ start,
                   const long long* __restrict__ cnt, int S, long long k,
                   int D, long long ns, int T, float* __restrict__ sums,
@@ -132,6 +143,14 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   if (t >= T) return;
   const long long t0 = (long long)t * TILE;
   const long long t1 = min(t0 + TILE, ns);
+  // given a row index, the rows of the tile's samples, read once
+  __shared__ long long rows_smem[ROWS ? TILE_WARPS * TILE : 1];
+  long long* tile_rows = rows_smem + (ROWS ? (threadIdx.x >> 5) * TILE : 0);
+  if (ROWS) {
+    for (long long i = t0 + lane; i < t1; i += 32)
+      tile_rows[i - t0] = rows[i * k];
+    __syncwarp();
+  }
   // the first segment whose last tile is t or later
   int f = 0, e = S;
   while (f < e) {
@@ -167,7 +186,9 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
             VT v[U];
 #pragma unroll
             for (int u = 0; u < U; ++u)
-              if (j + u < b) v[u] = V::stream(x + (j + u) * sstride + c);
+              if (j + u < b)
+                v[u] = V::stream(
+                    x + (ROWS ? tile_rows[j + u - t0] : j + u) * sstride + c);
 #pragma unroll
             for (int u = 0; u < U; ++u)
               if (j + u < b) {
@@ -256,14 +277,19 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
 }
 
 template <int VEC>
-int launch(const float* x, long long sstride, const long long* start,
-           const long long* cnt, int S, long long k, int D, long long ns,
-           int T, float* sums, float* sumsq, float* head, float* tail,
-           int* tail_seg, cudaStream_t stream) {
+int launch(const float* x, const long long* rows, long long sstride,
+           const long long* start, const long long* cnt, int S, long long k,
+           int D, long long ns, int T, float* sums, float* sumsq, float* head,
+           float* tail, int* tail_seg, cudaStream_t stream) {
   const int blocks = (T + TILE_WARPS - 1) / TILE_WARPS;
-  moments_tiles<VEC><<<blocks, TILE_WARPS * 32, 0, stream>>>(
-      x, sstride, start, cnt, S, k, D, ns, T, sums, sumsq, head, tail,
-      tail_seg);
+  if (rows)
+    moments_tiles<VEC, true><<<blocks, TILE_WARPS * 32, 0, stream>>>(
+        x, rows, sstride, start, cnt, S, k, D, ns, T, sums, sumsq, head,
+        tail, tail_seg);
+  else
+    moments_tiles<VEC, false><<<blocks, TILE_WARPS * 32, 0, stream>>>(
+        x, rows, sstride, start, cnt, S, k, D, ns, T, sums, sumsq, head,
+        tail, tail_seg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || T == 1) return (int)err;
   moments_combine<VEC><<<T, COMBINE_THREADS, 0, stream>>>(
@@ -278,22 +304,27 @@ extern "C" {
 // Samples a tile holds: the wrapper sizes the partials from it.
 int segment_moments_tile_samples(void) { return TILE; }
 
-// x [n_rows, D] f32 with rows row_stride floats apart (columns adjacent);
-// seg_start, seg_cnt [S] int64, ascending and not overlapping; sums,
-// sumsq [S, D] f32, contiguous; head, tail [T, 2 D] f32 and tail_seg [T]
-// int32 scratch, T = max(1, ceil(ceil(n_rows / k) / TILE)). Returns a CUDA
-// error code, 0 on success.
+// x [*, D] f32 with rows row_stride floats apart (columns adjacent);
+// rows null (position i is row i of x, n_rows of them) or [n_rows] int64
+// (position i is row rows[i]); seg_start, seg_cnt [S] int64 positions,
+// ascending and not overlapping; sums, sumsq [S, D] f32, contiguous; head,
+// tail [T, 2 D] f32 and tail_seg [T] int32 scratch, T = max(1,
+// ceil(ceil(n_rows / k) / TILE)). Returns a CUDA error code, 0 on success.
 int segment_moments_launch(const void* x, long long row_stride,
-                           const void* seg_start, const void* seg_cnt, int S,
-                           long long k, int D, long long n_rows, void* sums,
-                           void* sumsq, void* head, void* tail,
-                           void* tail_seg, int T, void* stream) {
+                           const void* rows, const void* seg_start,
+                           const void* seg_cnt, int S, long long k, int D,
+                           long long n_rows, void* sums, void* sumsq,
+                           void* head, void* tail, void* tail_seg, int T,
+                           void* stream) {
   const long long ns = (n_rows + k - 1) / k;
   if (S < 0 || D < 1 || k < 1 || n_rows < 0 ||
       T != (int)(ns > TILE ? (ns + TILE - 1) / TILE : 1))
     return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
-  const long long sstride = row_stride * k;
+  // a sample's row is sstride floats on from the last without an index,
+  // sstride floats a row of x with one
+  const long long sstride = rows ? row_stride : row_stride * k;
+  const long long* ri = static_cast<const long long*>(rows);
   const float* xf = static_cast<const float*>(x);
   const long long* st = static_cast<const long long*>(seg_start);
   const long long* ct = static_cast<const long long*>(seg_cnt);
@@ -303,10 +334,10 @@ int segment_moments_launch(const void* x, long long row_stride,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (D % 4 == 0 && sstride % 4 == 0 &&
       reinterpret_cast<uintptr_t>(x) % 16 == 0)
-    return launch<4>(xf, sstride, st, ct, S, k, D, ns, T, su, sq, hd, tl, ts,
-                     cs);
-  return launch<1>(xf, sstride, st, ct, S, k, D, ns, T, su, sq, hd, tl, ts,
-                   cs);
+    return launch<4>(xf, ri, sstride, st, ct, S, k, D, ns, T, su, sq, hd, tl,
+                     ts, cs);
+  return launch<1>(xf, ri, sstride, st, ct, S, k, D, ns, T, su, sq, hd, tl,
+                   ts, cs);
 }
 
 }  // extern "C"

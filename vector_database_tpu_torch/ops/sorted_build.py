@@ -1,13 +1,19 @@
 """Sorted-segment fused build (port of
 ``vector_database_tpu/ops/sorted_build.py``).
 
-One invariant carries the build: **rows are stored segment-contiguous at
-every level.** Per-segment sums and sums of squares are sums over each
-segment's rows (``segment_moments``); retired (leaf) ranges stop being
-referenced and keep their position, so the final layout is leaf-major
-with no finalize sort; the per-level stable partition moves rows only
-within their parent range, with destinations from one running count of
-lows.
+One invariant carries the build: **row positions are segment-contiguous
+at every level.** Per-segment sums and sums of squares are sums over each
+segment's positions (``segment_moments``); retired (leaf) ranges stop
+being referenced and keep their positions, so the final layout is
+leaf-major with no finalize sort; the per-level stable partition moves
+positions only within their parent range, with destinations from one
+running count of lows.
+
+The rows themselves stay where they are: a position holds a row index
+into ``vectors`` (``prow``), and each level moves that index, not the
+rows. Phase 1 reads the sampled rows through it, phase 2 one column of
+each row; one gather after the last level writes the leaf-major
+matrix.
 
 Differences from the JAX program, none of which changes a result:
 
@@ -15,10 +21,11 @@ Differences from the JAX program, none of which changes a result:
   sync per level (the live segment count), so per-segment arrays are
   sized to the live count instead of a static capacity and each level's
   node block is appended rather than window-written;
-- the card scatters cheaply, so the permutation is inverted with one
-  scatter ``src[dest] = pos`` where the TPU program sorted
-  (``lax.sort_key_val``), and the optimization barriers that sequenced
-  the TPU's prefix transients are gone;
+- the card scatters cheaply, so each level's permutation is applied by
+  scattering the row index and the segment ids to their destinations
+  where the TPU program sorted (``lax.sort_key_val``) and moved the rows,
+  and the optimization barriers that sequenced the TPU's prefix
+  transients are gone;
 - the split value is a column gather, where the TPU program summed a
   one-hot mask (the same value for finite rows);
 - every float prefix sum goes through ``prefix_sum``, whose order of
@@ -50,7 +57,8 @@ the subsampled counts, the split plane's numerator, the low counts behind
 the zero-progress guard and, under ``mean_id``, the segment id sums; one
 all-gather of the ``[S]`` counts gives each rank the global rank of its
 first row in every segment, for positional ties. Rows never leave their
-rank. Node tables come out identical on every rank, leaf runs local. The
+rank (a rank's row index points into its own shard). Node tables come
+out identical on every rank, leaf runs local. The
 one host sync per level reads the all-reduced counts, so every rank runs
 the same levels and the same collectives in the same order. With one
 rank every collective returns its input's bits: the tree is the
@@ -115,13 +123,13 @@ def _at(prefix, idx):
                                                device=v.device))
 
 
-def segment_moments_reference(x, seg_start, seg_cnt, k):
+def segment_moments_reference(x, seg_start, seg_cnt, k, rows=None):
     """Plain version of ``segment_moments``: prefix sums of the transposed
     samples, ``_D_CHUNK`` dimensions a pass, differenced at the segment
     bounds. Each sum is the difference of two prefixes over every sample
     before it, so it rounds at the scale of those prefixes."""
     d = x.shape[1]
-    xs = x[::k]
+    xs = x[::k] if rows is None else x[rows[::k]]
     # samples before idx
     n_before = lambda idx: (idx + (k - 1)) // k  # noqa: E731
     s_lo, s_hi = n_before(seg_start), n_before(seg_start + seg_cnt)
@@ -141,10 +149,9 @@ def _declare(lib):
     lib.segment_moments_tile_samples.argtypes = []
     lib.segment_moments_tile_samples.restype = ctypes.c_int
     lib.segment_moments_launch.argtypes = (
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_longlong] + [ctypes.c_void_p] * 5
-        + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.segment_moments_launch.restype = ctypes.c_int
 
@@ -153,13 +160,15 @@ def _load():
     return cuda_build.load("segment_moments", _declare)
 
 
-def segment_moments(x, seg_start, seg_cnt, k):
+def segment_moments(x, seg_start, seg_cnt, k, rows=None):
     """Per-segment sums and sums of squares of the sampled rows:
     ``(sums, sumsq)``, each ``[S, D]`` f32, over the rows ``x[::k]`` holds
     in each segment's rows ``[seg_start[s], seg_start[s] + seg_cnt[s])``,
     zeros where a segment holds none. Segments ascend and do not overlap
     (``seg_start[s] + seg_cnt[s] <= seg_start[s + 1]``), as the build keeps
-    them.
+    them. ``rows``, an optional ``[M]`` int64 row index into ``x``, puts
+    position ``i`` at row ``rows[i]``: the result is that on ``x[rows]``,
+    bit for bit, without the copy (the samples are ``x[rows[::k]]``).
 
     On a CUDA tensor this launches ``csrc/segment_moments.cu`` (built with
     ``nvcc`` at first use), or raises: each sampled row of a segment is
@@ -168,23 +177,23 @@ def segment_moments(x, seg_start, seg_cnt, k):
     run; ``COUNTERS["build.moments.launches"]`` counts the launches. On a
     CPU tensor it runs ``segment_moments_reference``."""
     if x.device.type == "cpu":
-        return segment_moments_reference(x, seg_start, seg_cnt, k)
+        return segment_moments_reference(x, seg_start, seg_cnt, k, rows)
     if x.device.type != "cuda":
         raise RuntimeError(f"segment_moments: no kernel for {x.device}")
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError("segment_moments: x must be [N, D] float32")
     if x.stride(1) != 1:  # the kernel reads a row's columns side by side
         x = x.contiguous()
-    if seg_start.dtype != torch.int64 or seg_cnt.dtype != torch.int64 or \
-            seg_start.shape != seg_cnt.shape or seg_start.dim() != 1 or \
-            not (seg_start.is_contiguous() and seg_cnt.is_contiguous()):
-        raise ValueError("segment_moments: seg_start and seg_cnt must be "
-                         "contiguous [S] int64")
-    if any(t.device != x.device for t in (seg_start, seg_cnt)):
+    index = [seg_start, seg_cnt] + ([] if rows is None else [rows])
+    if any(t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous()
+           for t in index) or seg_start.shape != seg_cnt.shape:
+        raise ValueError("segment_moments: seg_start, seg_cnt (and rows) "
+                         "must be contiguous [S] ([M]) int64")
+    if any(t.device != x.device for t in index):
         raise ValueError("segment_moments: inputs must lie on one device")
     if k < 1:
         raise ValueError(f"segment_moments: k must be >= 1, got {k}")
-    n, d = x.shape
+    n, d = x.shape if rows is None else (rows.shape[0], x.shape[1])
     s = seg_start.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     sums, sumsq = torch.empty((s, d), **f32), torch.empty((s, d), **f32)
@@ -196,8 +205,9 @@ def segment_moments(x, seg_start, seg_cnt, k):
     parts = torch.empty((2, tiles, 2 * d), **f32)  # head, tail partials
     tail_seg = torch.empty(tiles, dtype=torch.int32, device=x.device)
     err = lib.segment_moments_launch(
-        x.data_ptr(), x.stride(0), seg_start.data_ptr(), seg_cnt.data_ptr(),
-        s, k, d, n, sums.data_ptr(), sumsq.data_ptr(), parts[0].data_ptr(),
+        x.data_ptr(), x.stride(0), None if rows is None else rows.data_ptr(),
+        seg_start.data_ptr(), seg_cnt.data_ptr(), s, k, d, n,
+        sums.data_ptr(), sumsq.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), tail_seg.data_ptr(), tiles,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -262,10 +272,12 @@ def sorted_build(
     i64 = dict(dtype=torch.int64, device=dev)
     pos = torch.arange(n, **i64)
 
-    pvec = vectors
-    pid = row_ids.to(torch.int64)
+    # the rows stay in place, row-contiguous for the moments kernel; each
+    # position holds the row it stands for
+    vectors = vectors.contiguous()
+    ids = row_ids.to(torch.int64)
+    prow = pos.clone()
     pseg = torch.where(pos < n_valid, 0, -1)
-    pleaf = torch.full((n,), -1, **i64)
     seg_start = torch.zeros(1, **i64)
     seg_cnt = torch.full((1,), n_valid, **i64)
     blocks = []  # per level: (dim, mid, low, high, leaf_start, leaf_count)
@@ -290,7 +302,8 @@ def sorted_build(
                 # samples before idx
                 n_before = lambda idx: (idx + (k - 1)) // k
                 s_lo, s_hi = n_before(seg_start), n_before(ends)
-                sums, sumsq = segment_moments(pvec, seg_start, seg_cnt, k)
+                sums, sumsq = segment_moments(vectors, seg_start, seg_cnt,
+                                              k, prow)
                 sums, sumsq = psum(sums), psum(sumsq)  # [S, D]
 
                 cnt_f = torch.clamp(g_cnt, min=1).to(torch.float32)
@@ -328,6 +341,7 @@ def sorted_build(
                     # floor(sum_ids / count) per segment from one int64
                     # prefix sum of the active rows' ids (exact: sums stay
                     # below 2^60)
+                    pid = ids[prow]
                     ic = torch.cumsum(torch.where(active, pid, 0), dim=0)
                     mean_id = torch.div(
                         psum(_at(ic, ends) - _at(ic, seg_start)),
@@ -335,7 +349,7 @@ def sorted_build(
 
                 # --- phase 2: per-row split value and the exact split
                 # plane (one [N] prefix sum of the chosen column)
-                value = pvec.gather(1, p_dim[:, None])[:, 0]
+                value = vectors[prow, p_dim]
                 vc = prefix_sum(torch.where(active, value, 0.0))
                 mid = psum(_at(vc, ends) - _at(vc, seg_start)) / cnt_f
                 p_mid = mid[ps]
@@ -430,16 +444,16 @@ def sorted_build(
                 dest_high = p_start + p_locnt + local_rank - lows_upto
                 dest = torch.where(
                     moving, torch.where(go_high, dest_high, dest_low), pos)
-                src = torch.empty_like(pos)
-                src[dest] = pos  # invert the (unique-index) permutation
-
                 new_seg = torch.where(
                     active & p_is_int, 2 * p_rank + go_high.to(torch.int64),
                     -1)
-                new_leaf = torch.where(active & ~p_is_int, node_base + ps,
-                                       pleaf)
-                pvec = pvec[src]
-                pid, pseg, pleaf = pid[src], new_seg[src], new_leaf[src]
+                # dest is a permutation: each position's row index and
+                # segment go to their destination, the rows stay put
+                moved_row, moved_seg = (torch.empty_like(pos),
+                                        torch.empty_like(pos))
+                moved_row[dest] = prow
+                moved_seg[dest] = new_seg
+                prow, pseg = moved_row, moved_seg
                 seg_start, seg_cnt = new_start, new_cnt
 
             node_base = next_base
@@ -459,7 +473,11 @@ def sorted_build(
             seg_start,
             seg_cnt,
         ))
+    with span("vdb_torch.build.partition"):
+        # the build's one row gather: the leaf-major matrix
+        sorted_vectors = vectors[prow]
     nd, nm, nl, nh, nls, nlc = (torch.cat(col) for col in zip(*blocks))
     i32 = torch.int32
     return (nd.to(i32), nm, nl.to(i32), nh.to(i32), nls.to(i32),
-            nlc.to(i32), pid.to(i32), pvec, node_base + s_live, level)
+            nlc.to(i32), ids[prow].to(i32), sorted_vectors,
+            node_base + s_live, level)

@@ -208,8 +208,9 @@ def build_index_sharded(
     ``vectors``: a :class:`ShardedRows` (each rank read only its own
     rows), or the whole matrix (host or tensor, the same on every rank),
     of which each rank takes its block. ``donate``: accepted for the JAX
-    signature. The first level's permutation already makes a new tensor;
-    the input lives on while the caller holds it (``del`` it to free it).
+    signature. The build reads the rows in place and writes the leaf-major
+    matrix as a new tensor; the input lives on while the caller holds it
+    (``del`` it to free it).
     """
     del donate
     if isinstance(vectors, ShardedRows):
