@@ -37,7 +37,14 @@ Phases (each raises on failure; nothing is caught):
    ``torch._int_mm`` yardstick; the int8f route of ``bucket_scan_sm90.cu``
    (full, and pruned to 256 blocks) within the bf16 tolerance (also on an
    int8f pack with a seeded 1% of rows masked), and the pruned int8f
-   equalities of phase 4; both launch counts must rise;
+   equalities of phase 4; both launch counts must rise; then the exact
+   int8 kernel's uint8 form at the BIGANN cell's scan (U8_N x U8_D
+   seeded integer rows in [0, 255], 0 and 255 included, through
+   ``pack_database(dtype="uint8")``: 4096 buckets, block 8192; U8_Q
+   queries, one wave) bitwise equal to its plain version, with its bound
+   (2 Q N D operations at the int8 peak) and the ``torch._int_mm``
+   yardstick; ``scan.launches.uint8`` must count every launch and
+   ``scan.launches.int8`` none;
 7. bucket counts no 64-column tile divides: ``pack_database(buckets=
    1000)`` (block 1000 by the default rule) of 1M x 96 clustered rows in
    bf16, int8f and int8, each served by ``PackedServer`` (recall@10
@@ -193,6 +200,7 @@ PROBES = (192, 256, 320)
 TREE_N, TREE_D = 1_000_000, 8
 REMOVE, ADD, EXACT_Q, PROBE = N // 100, 10_000, 256, 256
 TAIL_N, TAIL_BUCKETS, TAIL_Q = 1_000_000, 1000, 1024
+U8_N, U8_D, U8_Q = 10_000_000, 128, 1024  # the uint8 scan of bigann-10M
 STORE_DOCS, STORE_TEXTS, STORE_ADD, SEARCH_Q = 200, 5000, 1000, 64
 OOC_N, OOC_CHUNK, OOC_PROBES = 30_000_000, 10_000_000, 256
 DELTA_Q, DELTA_R, DELTA_LIVE = 10_000, 16_384, 10_000
@@ -657,6 +665,75 @@ def _store_phase(dev):
     print(f"[store] {STORE_ADD} add_text rows served from the delta at "
           f"distance 0 ({out['delta_packed_s']:.3f} s for the batch), no "
           f"rebuild; bucket_scan launches {out['launches']}")
+    return out
+
+
+def _uint8_scan(dev):
+    """Phase 6's uint8 form of the exact int8 kernel at the BIGANN cell's
+    scan: U8_N x U8_D seeded integer rows in [0, 255] (rows and queries
+    at 0 and at 255 among them) through ``pack_database(dtype="uint8",
+    buckets=BUCKETS)``, U8_Q queries through ``_scan_queries``; the
+    kernel's scores and block ids bitwise its plain version's, its time,
+    bound and ``torch._int_mm`` yardstick, and its launches, counted
+    apart from the symmetric form's."""
+    import torch
+
+    from vector_database_tpu_torch import pack_database
+    from vector_database_tpu_torch.ops import bucket_scan_i8 as bi
+    from vector_database_tpu_torch.ops.packed_knn import _scan_queries
+    from vector_database_tpu_torch.utils.profiling import COUNTERS
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    draw = dict(generator=g, device=dev, dtype=torch.uint8)
+    rows = torch.randint(0, 256, (U8_N, U8_D), **draw).float()
+    rows[0], rows[1] = 0.0, 255.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pack = pack_database(rows, buckets=BUCKETS, dtype="uint8")
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    if (pack.dtype, pack.block, pack.m) != ("uint8", 8192, BUCKETS):
+        raise AssertionError(f"uint8 pack: {pack.dtype}, block "
+                             f"{pack.block}, m {pack.m}")
+    qp = torch.zeros((U8_Q, pack.d_pad), device=dev)
+    qp[:, :U8_D] = torch.randint(0, 256, (U8_Q, U8_D), **draw).float()
+    qp[0, :U8_D], qp[1, :U8_D] = 0.0, 255.0
+    qi = _scan_queries(pack, qp)
+    COUNTERS["scan.launches.uint8"] = COUNTERS["scan.launches.int8"] = 0
+
+    def kernel():
+        return bi.bucket_scan_i8(pack.vn, pack.vb, qi, m=pack.m, uint8=True)
+
+    def plain():
+        return bi.bucket_scan_i8_reference(pack.vn, pack.vb, qi, m=pack.m,
+                                           uint8=True)
+
+    sk, ik = kernel()
+    sp, ip = plain()
+    err = float((sk - sp).abs().max())
+    if not (torch.equal(sk, sp) and torch.equal(ik, ip)):
+        raise AssertionError(f"uint8 kernel != plain: max |score err| "
+                             f"{err}, {int((ik != ip).sum())} block ids "
+                             f"differ")
+    ms, plain_ms = _ms(kernel, REPS), _ms(plain, REPS)
+    nb = pack.vb.shape[0]
+    out = dict(n=U8_N, d=U8_D, q=U8_Q, blocks=nb, pack_s=pack_s,
+               max_abs_err=err, plain_ms=plain_ms, **_numbers(
+                   ms, 2 * U8_Q * U8_N * U8_D,
+                   _nbytes(pack.vb, pack.vn, qi, sk, ik), PEAK_INT8,
+                   _int_mm_ms(qi, pack.vb, nb)))
+    out["launches"] = COUNTERS["scan.launches.uint8"]
+    if out["launches"] != 2 + REPS or COUNTERS["scan.launches.int8"]:
+        raise AssertionError(
+            f"uint8 scan launches: uint8 {out['launches']} (want "
+            f"{2 + REPS}), int8 {COUNTERS['scan.launches.int8']} (want 0)")
+    print(f"[int8] uint8 form {U8_N}x{U8_D} ({nb} K-major blocks), {U8_Q} "
+          f"queries: pack {pack_s:.3f} s; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, scores and block ids bitwise equal; bound "
+          f"{out['bound_ms']:.3f} ms ({out['bound_by']}), "
+          f"{out['tflops']:.1f} TOP/s, {out['pct_of_bound']:.1f}% of "
+          f"bound; torch._int_mm {out['library_ms']}; launches uint8 "
+          f"{out['launches']}, int8 0")
     return out
 
 
@@ -2409,6 +2486,9 @@ def main():
           f"err| {i8m_err:.3g}, block-id ties {i8m_mis:.2e}")
     del full, pruned, srv, pruned8, pack, packs, p8, p8f, p8m, index
     del acc_k, acc_p, acc_all, pk, pp
+    torch.cuda.empty_cache()
+    u8 = _uint8_scan(dev)
+    torch.cuda.empty_cache()
 
     # ---- 7. bucket counts no 64-column tile divides ---------------------
     tail = _tail_phase(dev)
@@ -2599,6 +2679,7 @@ def main():
         "m1000_launches": tail["launches"]["bucket_scan_i8"],
         "m1000_max_abs_err": tail["int8"]["max_abs_err"],
         "harness_launches": harness["launches"]["bucket_scan_i8"],
+        "uint8": u8,
     }, {
         "name": "probe_kernel_ab",
         "route": "cuda",

@@ -31,6 +31,10 @@ tree over ``make_mesh()`` and over ``make_mesh_2d(1, 1)`` with
 of a tie, as the split-dimension choice needs. The ``recall_qps`` and
 ``latency`` harnesses run at 100k x 96 on the card, with their recall
 floors, and a latency request ends with its rows on the host.
+The integer scan's uint8 form equals its plain version bit for bit on
+``pack_database(dtype="uint8")`` packs, up to the benchmark cell's shapes
+cut to 64 blocks, and a 1M x 128 uint8 serve holds float64 brute force:
+exact distances, every nearest row served.
 The delta k-NN kernel (``csrc/delta_knn.cu``) equals its plain version
 on integer rows bit for bit, holds float rows to float64 within 2e-5,
 and counts its launches on card merges only.
@@ -138,6 +142,88 @@ def test_i8_plan_matches_kernel_layout(cuda_device, rows, d_pad):
     plan = tbi.i8_plan(rows, d_pad)
     assert tbi._load().bucket_scan_i8_smem_bytes(
         plan.nq, d_pad, plan.stages) == plan.smem
+
+
+def _uint8_rows(g, n, d, dev):
+    """Integer rows in [0, 255] over the whole range, 0 and 255 included,
+    with every 97th row past the first 8,192 a copy of the row 8,192
+    earlier (the same bucket a block earlier, so blocks tie)."""
+    rows = torch.randint(0, 256, (n, d), generator=g, device=dev).float()
+    rows[:2], rows[2:4] = 0.0, 255.0
+    if n > 8192:
+        tie = torch.arange(8192, n, 97, device=dev)
+        rows[tie] = rows[tie - 8192]
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,block,m,q", [
+    (64 * 8192 - 1000, 128, 8192, 4096, 1024),  # the cell's shapes, cut
+    (5 * 1024 - 7, 96, 1024, 512, 300),   # 96 columns in 128, a tail CTA
+    (3 * 1000, 100, 1000, 125, 104),      # m 125: slices off 16 bytes
+])
+def test_uint8_kernel_matches_plain_on_card(cuda_device, n, d, block, m, q):
+    """A ``pack_database(dtype="uint8")`` pack scored by the kernel's uint8
+    form: scores and first-block ids bitwise the plain version's, with
+    ``scan.launches.uint8`` counting the launch and ``.int8`` still."""
+    from vector_database_tpu_torch.ops import packed_knn as tpk
+
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    rows = _uint8_rows(g, n, d, cuda_device)
+    pack = tpk.pack_database(rows, block=block, buckets=m, dtype="uint8")
+    qp = torch.zeros((q, pack.d_pad), device=cuda_device)
+    qp[:, :d] = torch.randint(0, 256, (q, d), generator=g,
+                              device=cuda_device).float()
+    qp[0, :d], qp[1, :d] = 0.0, 255.0
+    qs = tpk._scan_queries(pack, qp)
+    before = dict(COUNTERS)
+    scores, ids = tbi.bucket_scan_i8(pack.vn, pack.vb, qs, m=m, uint8=True)
+    assert COUNTERS["scan.launches.uint8"] == \
+        before["scan.launches.uint8"] + 1
+    assert COUNTERS["scan.launches.int8"] == before["scan.launches.int8"]
+    want_s, want_b = tbi.bucket_scan_i8_reference(pack.vn, pack.vb, qs, m=m,
+                                                  uint8=True)
+    assert torch.equal(scores, want_s)
+    assert torch.equal(ids, want_b)
+
+
+@pytest.mark.cuda
+def test_uint8_serve_of_1m_rows_on_card(cuda_device):
+    """``PackedServer`` over a 1M x 128 uint8 pack of SIFT-like rows (the
+    benchmark recipe's: centres in [0, 128), noise 3.2) against float64
+    brute force: distances exact (integer rows: every f32 sum is exact),
+    every nearest row served, recall@10 at SIFT's cell limit or above, and
+    the integer kernel launched in its uint8 form only."""
+    from vector_database_tpu_torch import PackedServer
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(25)
+    cent = torch.rand((1000, 128), generator=g, device=dev) * 128
+
+    def draw(count):
+        x = cent[torch.randint(0, 1000, (count,), generator=g, device=dev)]
+        x += 3.2 * torch.randn((count, 128), generator=g, device=dev)
+        return x.round_().clamp_(0, 255)
+
+    rows, queries = draw(1_000_000), draw(2048)
+    before = dict(COUNTERS)
+    srv = PackedServer.from_vectors(rows, k=10, buckets=4096, dtype="uint8")
+    got, dist = srv.query(queries)
+    assert COUNTERS["scan.launches.uint8"] == \
+        before["scan.launches.uint8"] + 2
+    assert COUNTERS["scan.launches.int8"] == before["scan.launches.int8"]
+    v = rows.double()
+    vv = (v * v).sum(1)
+    hits = 0
+    for lo in range(0, 2048, 256):
+        q = queries[lo:lo + 256].double()
+        d2 = (q * q).sum(1)[:, None] + vv[None, :] - 2 * q @ v.T
+        kth = d2.topk(10, dim=1, largest=False).values
+        served = d2.gather(1, got[lo:lo + 256])
+        assert torch.equal(dist[lo:lo + 256].double(), served)
+        assert (served.amin(1) == kth[:, 0]).all()
+        hits += int((served <= kth[:, 9:]).sum())
+    assert hits / (2048 * 10) >= 0.987
 
 
 @pytest.mark.cuda

@@ -12,10 +12,10 @@ The ported slices are the main path and the int8 capacity path:
   ``ops/sorted_build.py``), and ``build_index``, the host-loop build
   (``ops/level.py``) with its streamed node blocks and its mesh forms
   (rows sharded, and the tensor-parallel ``dim_axis``);
-- ``pack_database`` (bf16, int8 and int8f blocks) and the bucketed scan,
-  full or pruned by block probes, with an exact f32 rerank
+- ``pack_database`` (bf16, int8, int8f and uint8 blocks) and the
+  bucketed scan, full or pruned by block probes, with an exact f32 rerank
   (``ops/packed_knn.py`` over the CUDA kernels in ``ops/bucket_scan.py``
-  and, for pure-int8 packs, the exact integer scan in
+  and, for the integer packs, int8 and uint8, the integer scan in
   ``ops/bucket_scan_i8.py``), behind ``PackedServer`` (``serving.py``);
 - the exact oracle (``ops/exact.py``) and the exact radius ``search`` /
   ``knn`` through the tree (``search.py``);

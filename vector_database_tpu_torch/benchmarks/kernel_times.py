@@ -11,7 +11,10 @@ path's shapes: a quick check of a kernel change, between full
   queries; the two full outputs must be equal bit for bit;
 - ``bucket_scan_i8`` over the same int8 values laid K-major ([8192,
   128] a block), int32 norms and 4096 int8 queries, full, in turns with
-  the int8f full scan (i8, int8f, i8, int8f);
+  the int8f full scan (i8, int8f, i8, int8f); then its uint8 form (the
+  ``pack_database(dtype="uint8")`` epilogue, ``vn - 2 q.v``) in turns
+  with its symmetric form (uint8, int8, uint8, int8), at 1024 and at
+  4096 queries (10M x 128: BIGANN's rows, unpadded);
 - the A/B probe's four modes at 10M rows (its own inputs) with 1024 and
   with 4096 queries.
 
@@ -85,6 +88,11 @@ def main():
         out.setdefault("i8_vs_int8f_full_ms", {}).setdefault(name, []).append(
             _ms(lambda: bi.bucket_scan_i8(vn2, vbk, qi, m=M)) if name == "i8"
             else _ms(lambda: bs.bucket_scan(vn, vb8, q, m=M, bits=BITS)))
+    for nq in (pab.Q, Q):
+        forms = out.setdefault(f"i8_forms_q{nq}_ms", {})
+        for name in ("uint8", "int8", "uint8", "int8"):
+            forms.setdefault(name, []).append(_ms(lambda: bi.bucket_scan_i8(
+                vn2, vbk, qi[:nq], m=M, uint8=name == "uint8")))
     del vb8, vbk, blocks
     for nq in (pab.Q, Q):
         vn_ab, vb_ab, q_ab, qn_ab = pab.make_inputs(10_000_000, q=nq)

@@ -1,19 +1,29 @@
-// Exact integer bucketed k-NN scan over a pure-int8 pack, on the Hopper
-// skeleton of sm90.cuh (its s8 route).
+// Exact integer bucketed k-NN scan over a pure-int8 or uint8 pack, on the
+// Hopper skeleton of sm90.cuh (its s8 route).
 //
 // Replaces the TPU kernel _kernel_i8 (vector_database_tpu/ops/pallas_knn.py
 // :344, called at :983).
 //
 // What it computes, for every query row r and bucket c in [0, m), in int32:
 //   scores[r, c] = min over blocks b and slices j < w = block/m of
-//                  vn2[b, j*m + c] + qi[r, :] . vb[b, j*m + c, :]
+//                  S(b, j*m + c)
 //   ids[r, c]    = the first block, in walk order, that reached it
-// vb holds -v*sq in int8, K-major ([nb, block, d_pad]: each block's rows
-// as they lie), qi holds q*sq in int8 and vn2 = rint(|v|^2 sq^2 / 2), so a
-// score is sq^2/2 times |v|^2 - 2 q.v up to the input quantization, and
-// every product and sum is exact. Each slice folds straight into the
-// running minimum, strictly, in walk order (block by block, slice by
-// slice): x = prod + vn2; better = x < acc; acc = better ? x : acc;
+// with S one of two epilogues (the template flag U8):
+//   symmetric int8 (U8 false): S = vn2[b, i] + qi[r, :] . vb[b, i, :].
+//     vb holds -v*sq in int8, qi holds q*sq and vn2 = rint(|v|^2 sq^2/2),
+//     so a score is sq^2/2 times |v|^2 - 2 q.v up to the quantization of
+//     the inputs: exact in its quantized values, not in the rows'.
+//   uint8 (U8 true): S = vn2[b, i] - 2 qi[r, :] . vb[b, i, :].
+//     vb holds v - 128 and qi q - 128 over the full int8 range, and vn2 =
+//     |v - 128|^2, so a score is |v - q|^2 - |q - 128|^2 exactly, for every
+//     uint8 row and query: L2 ranks alike under the translation. The
+//     blocks are not negated (-(-128) does not fit int8); the epilogue
+//     doubles the product instead. |S| <= 3 * 128^2 * d_pad, ~6.3M at
+//     d_pad 128, below the 2^30 of padded rows.
+// vb is K-major ([nb, block, d_pad]: each block's rows as they lie) in
+// both forms, and every product and sum is exact. Each slice folds
+// straight into the running minimum, strictly, in walk order (block by
+// block, slice by slice): x = S; better = x < acc; acc = better ? x : acc;
 // id = better ? b : id. The first (b, j) in walk order that reaches the
 // global minimum belongs to the first block whose own minimum equals it,
 // so this gives the reference's min over slices, then strict compare per
@@ -34,8 +44,10 @@
 //     lanes a clock an SM. That is longer than the products, so it decides
 //     the kernel's time, the more so where the two consumer warpgroups
 //     fold at the same time instead of in turns (PERF.md, section 6).
+//     The uint8 form's vn2 - 2 prod is one multiply-add where the
+//     symmetric form adds: the same count.
 // What the design does about it:
-//  * The pure-int8 pack is K-major, so both operands of s8 wgmma
+//  * Both integer packs are K-major, so both operands of s8 wgmma
 //    (m64nNk32, K-major only: s8 takes no transpose flags) come from shared
 //    memory through descriptors: the database tile is A (64 bucket rows x
 //    128 bytes of k, a [64][128] TMA box with 128-byte swizzle), the int8
@@ -59,8 +71,9 @@ using namespace sm90;
 
 constexpr int KC = 128;  // bytes of k a staged tile holds: one swizzled row
 
-// NQ: query rows per consumer warpgroup (the wgmma N); R = 2 * NQ.
-template <int NQ>
+// NQ: query rows per consumer warpgroup (the wgmma N); R = 2 * NQ. U8:
+// the uint8 epilogue (vn2 - 2 prod) in place of the symmetric one.
+template <int NQ, bool U8>
 __global__ void __launch_bounds__(THREADS, 1)
 bucket_scan_i8_kernel(const __grid_constant__ CUtensorMap tm_vb,
                       const __grid_constant__ CUtensorMap tm_q,
@@ -98,10 +111,12 @@ bucket_scan_i8_kernel(const __grid_constant__ CUtensorMap tm_vb,
     consume<NQ, KC, OPS_S8, true>(
         sm, wk, c, stages,
         [&](const int (&prod)[NACC], int v0, int v1, int b, int) {
-          // score = vn2 + qi.(-v sq); strict: a tie keeps the earlier block
+          // score = vn2 + qi.(-v sq), or vn2 - 2 qi.(v - 128); strict: a
+          // tie keeps the earlier block
 #pragma unroll
           for (int i = 0; i < NACC; ++i) {
-            const int x = prod[i] + ((i & 2) ? v1 : v0);
+            const int vn2 = (i & 2) ? v1 : v0;
+            const int x = U8 ? vn2 - 2 * prod[i] : prod[i] + vn2;
             const bool better = x < acc[i];
             acc[i] = better ? x : acc[i];
             ids[i] = better ? b : ids[i];
@@ -136,22 +151,28 @@ struct Args {
   int* out_s;
   int* out_b;
   int nb, d_pad, block, m, q_pad, stages;
+  bool u8;
   size_t smem;
   cudaStream_t stream;
 };
 
-template <int NQ>
-int launch(const Args& a) {
+template <int NQ, bool U8>
+int launch_form(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
-      bucket_scan_i8_kernel<NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)a.smem);
+      bucket_scan_i8_kernel<NQ, U8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return (int)err;
   const int cpg = (a.q_pad + 2 * NQ - 1) / (2 * NQ);
   dim3 grid(cpg, (a.m + MT - 1) / MT);
-  bucket_scan_i8_kernel<NQ><<<grid, THREADS, a.smem, a.stream>>>(
+  bucket_scan_i8_kernel<NQ, U8><<<grid, THREADS, a.smem, a.stream>>>(
       a.tm_vb, a.tm_q, a.tm_vn, a.out_s, a.out_b, a.nb, a.d_pad, a.block,
       a.m, a.q_pad, cpg, a.stages);
   return (int)cudaGetLastError();
+}
+
+template <int NQ>
+int launch(const Args& a) {
+  return a.u8 ? launch_form<NQ, true>(a) : launch_form<NQ, false>(a);
 }
 
 }  // namespace
@@ -168,13 +189,14 @@ size_t bucket_scan_i8_smem_bytes(int nq, int d_pad, int stages) {
 // vb [nb, block, d_pad] int8 (K-major) with rows ld_vb bytes apart, int32
 // vn [nb, 1, block] with rows ld_vn apart (each row stride a multiple of
 // 16 bytes), int8 q [q_pad, d_pad] (d_pad % 16 == 0); out_s and out_b
-// [q_pad, m] int32. nq in {16, 32, 64, 128}; block % m == 0. Returns a
+// [q_pad, m] int32. nq in {16, 32, 64, 128}; block % m == 0; u8 non-zero
+// selects the uint8 epilogue (vb = v - 128, vn = |v - 128|^2). Returns a
 // CUDA error code (CUDA_ERROR_* + 10000 for cuTensorMapEncodeTiled), 0
 // on success.
 int bucket_scan_i8_launch(const void* vn, const void* vb, const void* q,
                           void* out_s, void* out_b, int nb, int d_pad,
                           int block, int ld_vb, int ld_vn, int m, int q_pad,
-                          int nq, int stages, void* stream) {
+                          int nq, int stages, int u8, void* stream) {
   if (!encode_fn()) return (int)cudaErrorNotSupported;
   Args a;
   CUresult res =
@@ -188,6 +210,7 @@ int bucket_scan_i8_launch(const void* vn, const void* vb, const void* q,
   a.out_b = static_cast<int*>(out_b);
   a.nb = nb, a.d_pad = d_pad, a.block = block, a.m = m, a.q_pad = q_pad;
   a.stages = stages;
+  a.u8 = u8 != 0;
   a.smem = bucket_scan_i8_smem_bytes(nq, d_pad, stages);
   a.stream = static_cast<cudaStream_t>(stream);
   switch (nq) {

@@ -6,7 +6,14 @@ launch count.
 pack: for every query row and bucket ``c < m`` the minimum over blocks and
 slices of ``vn2[b, j*m+c] + qi . vb[b, j*m+c, :]`` in int32, and in a
 second output the first block that reached it (ties keep the earlier
-block). The pack's ``vb`` is K-major, ``[nb, block, d_pad]`` (each block's
+block). That pack holds ``-v*sq`` under one symmetric scale, so the
+scores are exact in its quantized values, not in the rows'. With
+``uint8=True`` it scores a uint8 pack instead (``pack_database(dtype=
+"uint8")``: ``vb = v - 128``, ``qi = q - 128`` over the whole int8 range,
+``vn2 = |v - 128|^2``): the minimum of ``vn2 - 2 qi . vb``, which is
+``|v - q|^2 - |q - 128|^2`` exactly for every uint8 row and query (no
+int8 value is negated, since ``-(-128)`` does not fit). The pack's ``vb``
+is K-major, ``[nb, block, d_pad]`` (each block's
 rows as they lie), because s8 ``wgmma`` reads both operands K-major; the
 JAX package's is ``[nb, d_pad, block]``, which ``PackedDB.from_numpy``
 transposes once, at load.
@@ -21,7 +28,8 @@ boundaries are scanned from a copy laid out in aligned slices, as in
 ``bucket_scan``). On a CPU tensor the wrapper runs
 ``bucket_scan_i8_reference``, the plain torch loop with the same
 arguments. ``utils/profiling.COUNTERS["scan.launches.int8"]`` counts
-the kernel's launches.
+the kernel's launches in the symmetric form, ``"scan.launches.uint8"``
+those in the uint8 form.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from vector_database_tpu_torch.ops.exact import full_f32
 from vector_database_tpu_torch.utils.profiling import COUNTERS
 
 # An f32 product of int8-valued operands is exact while every partial sum
-# stays below 2^24: 1024 * 127^2 < 2^24.
+# stays within 2^24: 1024 * 128^2 = 2^24.
 _EXACT_K = 1024
 # bytes of k in a staged tile: one 128-byte swizzled row of the K-major
 # pack (a chunk that runs past d_pad reads TMA's zero fill)
@@ -66,7 +74,7 @@ def i8_plan(rows: int, d_pad: int) -> ScanPlan:
 
 def _declare(lib):
     lib.bucket_scan_i8_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     )
     lib.bucket_scan_i8_launch.restype = ctypes.c_int
     lib.bucket_scan_i8_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -107,11 +115,12 @@ def _int_dot(a, b):
     return out
 
 
-def bucket_scan_i8_reference(vn, vb, q, *, m):
+def bucket_scan_i8_reference(vn, vb, q, *, m, uint8=False):
     """Plain torch version of the kernel: ``(scores, block_ids)``, both
     ``[q_pad, m]`` int32, from K-major int8 blocks ``vb [nb, block,
     d_pad]``, int32 norms ``vn [nb, 1, block]`` and int8 queries ``q
-    [q_pad, d_pad]``."""
+    [q_pad, d_pad]``; a score is ``vn + q . vb``, or ``vn - 2 q . vb``
+    with ``uint8``."""
     _check(vn, vb, q, m)
     nb, block, _ = vb.shape
     w = block // m
@@ -121,7 +130,8 @@ def bucket_scan_i8_reference(vn, vb, q, *, m):
     ids = torch.zeros((q_pad, m), dtype=torch.int32, device=q.device)
     qf = q.float()
     for b in range(nb):
-        s = _int_dot(qf, vb[b].float().T) + vn[b]
+        dot = _int_dot(qf, vb[b].float().T)
+        s = vn[b] - 2 * dot if uint8 else dot + vn[b]
         mins = s.view(q_pad, w, m).amin(1)
         better = mins < scores
         scores = torch.where(better, mins, scores)
@@ -129,11 +139,11 @@ def bucket_scan_i8_reference(vn, vb, q, *, m):
     return scores, ids
 
 
-def bucket_scan_i8(vn, vb, q, *, m):
+def bucket_scan_i8(vn, vb, q, *, m, uint8=False):
     """The exact integer scan: ``(scores, block_ids)``, ``[q_pad, m]``
     int32 each. Arguments as ``bucket_scan_i8_reference``."""
     if q.device.type == "cpu":
-        return bucket_scan_i8_reference(vn, vb, q, m=m)
+        return bucket_scan_i8_reference(vn, vb, q, m=m, uint8=uint8)
     if q.device.type != "cuda":
         raise RuntimeError(f"bucket_scan_i8: no kernel for {q.device}")
     _check(vn, vb, q, m)
@@ -144,7 +154,8 @@ def bucket_scan_i8(vn, vb, q, *, m):
     check_kernel_shape(d_pad, m)
     if not slices_aligned(m, block, 4):  # norms only: K-major rows are
         scores, ids = bucket_scan_i8(pad_slices(vn, m, 2),
-                                     pad_slices(vb, m, 1), q, m=row_pitch(m))
+                                     pad_slices(vb, m, 1), q, m=row_pitch(m),
+                                     uint8=uint8)
         return scores[:, :m].contiguous(), ids[:, :m].contiguous()
     ld_vb, ld_vn = row_stride(vb), row_stride(vn)
     q_pad = q.shape[0]
@@ -154,9 +165,10 @@ def bucket_scan_i8(vn, vb, q, *, m):
     err = _load().bucket_scan_i8_launch(
         vn.data_ptr(), vb.data_ptr(), q.data_ptr(), scores.data_ptr(),
         ids.data_ptr(), nb, d_pad, block, ld_vb, ld_vn, m, q_pad, plan.nq,
-        plan.stages, torch.cuda.current_stream(q.device).cuda_stream,
+        plan.stages, int(uint8),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"bucket_scan_i8 launch failed: CUDA error {err}")
-    COUNTERS["scan.launches.int8"] += 1
+    COUNTERS["scan.launches.uint8" if uint8 else "scan.launches.int8"] += 1
     return scores, ids

@@ -17,12 +17,24 @@ global scale ``sq = 127 / max|v|`` and blocks ``-v*sq`` in int8:
 ``"int8f"`` keeps the f32 norm row and the summaries and scores through the
 same kernel (its int8 instantiation widens the blocks to bf16, queries are
 pre-scaled by ``2/sq``); ``"int8"`` stores the integer norm row
-``rint(|v|^2 sq^2/2)`` and scores exactly in int32 with int8 queries
-(``ops/bucket_scan_i8.py``), the block id in a second accumulator. The
-pure-int8 pack keeps its blocks K-major, ``vb [nb, block, d_pad]`` (the
-rows as they lie), the operand layout of the int8 tensor cores; the other
-packs keep the JAX package's ``[nb, d_pad, block]``. The wider default
-shortlist (``oversample`` 16) absorbs the quantization.
+``rint(|v|^2 sq^2/2)`` and scores in int32 with int8 queries
+(``ops/bucket_scan_i8.py``), the block id in a second accumulator. Its
+integer arithmetic is exact in the quantized values only: the scale keeps
+255 levels of the range ``[-max|v|, max|v|]``, so rows that use half of it
+(non-negative data) keep 128. The wider default shortlist (``oversample``
+16) absorbs the quantization.
+
+``"uint8"`` is the lossless int8 pack of rows that are integers in [0,
+255] (SIFT-like descriptors): blocks ``v - 128`` over the whole int8
+range, no scale and no clamp, beside the exact int32 norm row ``|v -
+128|^2``, scored by the same integer kernel as ``vn2 - 2 q'.v'`` with
+``q' = q - 128`` (queries rounded and clamped to [0, 255] first). L2
+distance does not change under the translation, so its selection is exact
+(the score is ``|v - q|^2 - |q'|^2``) and it takes bf16's shortlist of
+``k * 4`` buckets. Both integer packs keep their blocks K-major, ``vb [nb,
+block, d_pad]`` (the rows as they lie), the operand layout of the int8
+tensor cores; the other packs keep the JAX package's ``[nb, d_pad,
+block]``.
 
 The block axis of ``vb`` (bf16, int8f) and of ``vn`` lies in rows padded
 to a multiple of 16 elements when ``block`` is not one (``pad_rows``), so
@@ -65,12 +77,22 @@ from vector_database_tpu_torch.ops.exact import (
     normalize_rows,
 )
 from vector_database_tpu_torch.utils.device import resolve_device
-from vector_database_tpu_torch.utils.profiling import span, spanned
+from vector_database_tpu_torch.utils.profiling import (
+    COUNTERS,
+    span,
+    spanned,
+)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
+
+# pack forms whose blocks hold one byte an element; those scored in int32
+_BYTE_PACKS = ("int8", "int8f", "uint8")
+_INTEGER_PACKS = ("int8", "uint8")
+# the uint8 pack's offset: v - 128 maps [0, 255] onto int8's whole range
+_U8_OFFSET = 128
 
 # The TPU kernels' double-buffered VMEM windows may claim this much; kept
 # so that the default block (and with it the bucket layout and results)
@@ -90,8 +112,8 @@ def auto_block(
     power-of-two block (<= ``start``) whose two ``[d_pad, block]`` windows
     fit the TPU kernel's budget at dimensionality ``d`` (8192 up to
     d=640). The port keeps the rule so that default packs bucket alike."""
-    itemsize = 1 if dtype in ("int8", "int8f") else 2
-    if dtype in ("int8", "int8f"):
+    itemsize = 1 if dtype in _BYTE_PACKS else 2
+    if dtype in _BYTE_PACKS:
         d_align = max(d_align, 32)
     d_pad = _round_up(max(d, 1), d_align)
     block = start
@@ -120,12 +142,16 @@ class PackedDB:
 
     ``vectors`` is the original f32 matrix (referenced, not copied) for
     the exact rerank; ``cent``/``rad`` are the per-cell pruning summaries
-    (radius -3e38 marks an all-padding cell; None on pure-int8 packs)."""
+    (radius -3e38 marks an all-padding cell; None on the integer packs).
+    ``dtype`` is the form ``pack_database`` was given: ``"bfloat16"``,
+    ``"int8f"``, ``"int8"`` or ``"uint8"``."""
 
-    # [nb, d_pad, block] bf16 -2v (-v for ip) or int8f -v*sq; pure int8:
-    # K-major [nb, block, d_pad] -v*sq
+    # [nb, d_pad, block] bf16 -2v (-v for ip) or int8f -v*sq; K-major
+    # [nb, block, d_pad]: int8 -v*sq, uint8 v - 128
     vb: torch.Tensor
-    vn: torch.Tensor  # [nb, 1, block] f32 |v|^2 (3e38 pad) / int32 vn2 (2^30)
+    # [nb, 1, block] f32 |v|^2 (3e38 pad); int32 (2^30 pad): int8
+    # rint(|v|^2 sq^2/2), uint8 |v - 128|^2
+    vn: torch.Tensor
     vectors: torch.Tensor  # [N, D] f32
     n: int
     block: int
@@ -135,15 +161,22 @@ class PackedDB:
     metric: str = "l2"  # "l2" | "cosine" | "ip"
     cent: torch.Tensor | None = None  # [nb * cells, D] f32
     rad: torch.Tensor | None = None  # [nb * cells] f32
+    dtype: str = "bfloat16"
 
     @property
     def device(self) -> torch.device:
         return self.vb.device
 
     @property
+    def integer(self) -> bool:
+        """Whether the pack is scored in int32 (``"int8"``, ``"uint8"``):
+        K-major blocks, an int32 norm row, no pruning summaries."""
+        return self.dtype in _INTEGER_PACKS
+
+    @property
     def d_pad(self) -> int:
         """The padded dimensionality of the blocks."""
-        return self.vb.shape[2 if self.vn.dtype == torch.int32 else 1]
+        return self.vb.shape[2 if self.integer else 1]
 
     def mask_rows(self, alive) -> "PackedDB":
         """A new ``PackedDB`` sharing every tensor except the norm row:
@@ -151,11 +184,13 @@ class PackedDB:
         sentinel, so they can never win a bucket. Pass the same mask as
         ``row_mask=`` to the serve call. The pruning summaries are shared
         unchanged: dead rows still steer block selection a little until
-        the next repack. Pure-int8 packs (integer norm row) raise."""
-        if self.vn.dtype == torch.int32:
+        the next repack. The integer packs (``"int8"``, ``"uint8"``)
+        raise."""
+        if self.integer:
             raise ValueError(
-                "mask_rows requires dtype='bfloat16'/'int8f' (the pure "
-                "-int8 integer norm row has no masked encoding)"
+                f"mask_rows requires dtype='bfloat16'/'int8f', not "
+                f"{self.dtype!r} (an integer norm row has no masked "
+                "encoding)"
             )
         alive = torch.as_tensor(alive, device=self.device).bool()
         return dataclasses.replace(self, vn=_mask_vn(self.vn, alive, self.n))
@@ -167,8 +202,9 @@ class PackedDB:
         ``cent``/``rad``; ``vb`` may be an ml_dtypes bfloat16 array or
         int8, ``vn`` f32 or int32) and ``meta`` (``n``, ``block``, ``m``,
         ``bits``, optional ``sq`` and ``metric``), on ``device`` (default:
-        the card, ``cuda``). A pure-int8 pack (int32 ``vn``) is transposed
-        once to its K-major ``[nb, block, d_pad]``."""
+        the card, ``cuda``). The arrays' types give the form (the JAX
+        package has no uint8 pack); a pure-int8 pack (int32 ``vn``) is
+        transposed once to its K-major ``[nb, block, d_pad]``."""
         device = resolve_device(device)
         opt = {key: _to_tensor(arrays[key], device)
                for key in ("cent", "rad") if arrays.get(key) is not None}
@@ -176,15 +212,17 @@ class PackedDB:
         vn = _to_tensor(arrays["vn"], device)
         if vn.dtype == torch.int32:
             vb = vb.transpose(1, 2).contiguous()
+            form = "int8"
         else:
             vb = pad_rows(vb)
+            form = "int8f" if vb.dtype == torch.int8 else "bfloat16"
         return cls(
             vb=vb,
             vn=pad_rows(vn),
             vectors=_to_tensor(arrays["vectors"], device),
             n=int(meta["n"]), block=int(meta["block"]), m=int(meta["m"]),
             bits=int(meta["bits"]), sq=float(meta.get("sq", 0.0)),
-            metric=meta.get("metric", "l2"), **opt,
+            metric=meta.get("metric", "l2"), dtype=form, **opt,
         )
 
 
@@ -242,6 +280,31 @@ def _int8_body(blk, real, *, sq, float_norms):
         return vq.to(torch.int8), torch.where(real, vnb, 3.0e38)
     vn2 = torch.round(vnb * torch.tensor(sq * sq * 0.5, **f32))
     return vq.to(torch.int8), torch.where(real, vn2.to(torch.int32), 2 ** 30)
+
+
+def _uint8_body(blk, real, *, d):
+    """uint8 pack rows, from rows of integers in [0, 255]: ``v - 128`` in
+    int8 (exact: no scale, no clamp) and the exact int32 norm row ``|v -
+    128|^2``; padded rows and columns hold 0, so they add nothing to a
+    product, and padded rows' norm is 2^30 (above any real score, below
+    the 2^31-1 init)."""
+    cols = torch.arange(blk.shape[1], device=blk.device) < d
+    keep = real[:, None] & cols[None, :]
+    vq = torch.where(keep, blk - _U8_OFFSET, 0.0).to(torch.int8)
+    vi = vq.to(torch.int32)
+    vn2 = torch.sum(vi * vi, dim=1, dtype=torch.int32)
+    return vq, torch.where(real, vn2, 2 ** 30)
+
+
+def _uint8_rows(vectors) -> bool:
+    """Whether every element of ``vectors`` is an integer in [0, 255]
+    (NaN and inf are not), read in chunks of rows with one host sync."""
+    ok = torch.ones((), dtype=torch.bool, device=vectors.device)
+    step = max(1, (1 << 24) // max(1, vectors.shape[1]))
+    for r0 in range(0, vectors.shape[0], step):
+        x = vectors[r0:r0 + step]
+        ok &= torch.all((x >= 0) & (x <= 255) & (x == torch.round(x)))
+    return bool(ok)
 
 
 def _pack_blockwise(vectors, *, block, d_align, n_valid, cell, body,
@@ -320,17 +383,21 @@ def pack_database(
     (maximum inner product: ``-v`` blocks, zero norm row).
     ``rows_valid``: rows past this count are caller padding, excluded from
     bucket selection; they should hold +inf so the rerank never returns
-    them. ``dtype``: ``"bfloat16"`` (default), ``"int8"`` (half the
-    blocks' bytes, exact integer selection, no pruning) or ``"int8f"``
-    (int8 blocks, bf16 scoring, pruning); the int8 pair takes
-    ``"l2"``/``"cosine"`` only, no ``rows_valid``, and pads D to a
-    multiple of 32.
+    them. ``dtype``: ``"bfloat16"`` (default); ``"int8"`` (half the
+    blocks' bytes, integer selection that is exact in the values
+    quantized by one symmetric scale, not in the rows', no pruning);
+    ``"int8f"`` (int8 blocks, bf16 scoring, pruning); or ``"uint8"``, for
+    rows that are integers in [0, 255] (others raise ``ValueError``):
+    ``v - 128`` in int8 blocks, selection exact in the rows themselves, no
+    pruning, ``"l2"`` only. The byte packs take no ``rows_valid`` and pad
+    D to a multiple of 32; the int8 pair takes ``"l2"``/``"cosine"``.
     """
     vectors = as_f32(vectors, device)
     if metric not in ("l2", "cosine", "ip"):
         raise ValueError(f"unknown metric: {metric}")
-    if dtype not in ("bfloat16", "bf16", "int8", "int8f"):
+    if dtype not in ("bfloat16", "bf16") + _BYTE_PACKS:
         raise ValueError(f"unknown pack dtype: {dtype}")
+    dtype = "bfloat16" if dtype == "bf16" else dtype
     n, d = vectors.shape
     if block is None:
         block = auto_block(d, d_align=d_align, dtype=dtype, buckets=buckets)
@@ -358,30 +425,44 @@ def pack_database(
         )
     n_valid = None if rows_valid == n else rows_valid
     sq = 0.0
-    if dtype in ("int8", "int8f"):
-        if metric == "ip":
-            raise ValueError("metric='ip' requires dtype='bfloat16'")
+    if dtype in _BYTE_PACKS:
+        if metric == "ip" or (dtype == "uint8" and metric != "l2"):
+            raise ValueError(
+                f"metric={metric!r} is not served by dtype={dtype!r}")
         if n_valid is not None:
             raise ValueError(
-                "rows_valid padding requires dtype='bfloat16' (the int8 "
-                "global scale would absorb the sentinel rows)"
+                f"rows_valid padding requires dtype='bfloat16', not "
+                f"{dtype!r} (the sentinel rows have no byte encoding)"
             )
         d_align = max(d_align, 32)  # the int8 MMA's contraction step
+    if dtype == "uint8":
+        d_pad = _round_up(d, d_align)
+        if 3 * _U8_OFFSET ** 2 * d_pad >= 2 ** 30:  # |score| < 2^30 pad
+            raise ValueError(
+                f"dtype='uint8' needs 3 * 128^2 * d_pad < 2^30; got d_pad "
+                f"{d_pad}")
+        if not _uint8_rows(vectors):
+            raise ValueError(
+                "dtype='uint8' requires rows whose every element is an "
+                "integer in [0, 255]")
+        body = functools.partial(_uint8_body, d=d)
+    elif dtype in ("int8", "int8f"):
         sq = 127.0 / max(float(vectors.abs().max()), 1e-30)
         body = functools.partial(_int8_body, sq=sq,
                                  float_norms=dtype == "int8f")
     else:
         body = functools.partial(_bf16_body, ip=metric == "ip")
-    # the pure-int8 scan has no pruned variant: no summaries; its blocks
+    # the integer scan has no pruned variant: no summaries; its blocks
     # are K-major
+    integer = dtype in _INTEGER_PACKS
     vb, vn, cent, rad = _pack_blockwise(
         vectors, block=block, d_align=d_align, n_valid=n_valid,
-        cell=None if dtype == "int8" else _summary_cell(block), body=body,
-        kmajor=dtype == "int8",
+        cell=None if integer else _summary_cell(block), body=body,
+        kmajor=integer,
     )
     return PackedDB(
         vb=vb, vn=vn, vectors=vectors, n=n, block=block, m=m, bits=bits,
-        sq=sq, metric=metric, cent=cent, rad=rad,
+        sq=sq, metric=metric, cent=cent, rad=rad, dtype=dtype,
     )
 
 
@@ -431,12 +512,20 @@ def _scan_queries(pack: PackedDB, qp: torch.Tensor) -> torch.Tensor:
     """The scan kernel's query operand from padded f32 queries: bf16 for a
     bf16 pack; ``qp * (2/sq)`` in bf16 for int8f (the blocks hold
     ``-v*sq``, so the dot comes out as ``-2 q.v``); int8
-    ``clip(rint(qp * sq), -127, 127)`` for pure int8. Scales are f32, as
-    ``jnp`` rounds a weakly typed Python float."""
-    if pack.vb.dtype != torch.int8:
+    ``clip(rint(qp * sq), -127, 127)`` for pure int8; for uint8
+    ``clip(rint(qp), 0, 255) - 128`` in int8 over the real columns and 0
+    past them (on the card, with no host sync). Scales are f32, as ``jnp``
+    rounds a weakly typed Python float."""
+    if pack.dtype == "bfloat16":
         return qp.to(torch.bfloat16)
+    if pack.dtype == "uint8":
+        d = pack.vectors.shape[1]
+        qi = torch.clamp(torch.round(qp[:, :d]), 0, 255) - _U8_OFFSET
+        out = torch.zeros(qp.shape, dtype=torch.int8, device=qp.device)
+        out[:, :d] = qi.to(torch.int8)
+        return out
     f32 = dict(dtype=torch.float32, device=qp.device)
-    if pack.vn.dtype == torch.int32:
+    if pack.dtype == "int8":
         qi = torch.round(qp * torch.tensor(pack.sq, **f32))
         return torch.clamp(qi, -127, 127).to(torch.int8)
     return (qp * torch.tensor(2.0 / pack.sq, **f32)).to(torch.bfloat16)
@@ -465,10 +554,10 @@ def _shortlist_rows(
     nb, d_pad = pack.vb.shape[0], pack.d_pad
     q, d = queries.shape
     w = block // m
-    pure_i8 = pack.vn.dtype == torch.int32
     if oversample is None:
-        # int8 quantization noise is absorbed by a wider shortlist
-        oversample = 16 if pack.vb.dtype == torch.int8 else 4
+        # int8 quantization noise is absorbed by a wider shortlist; the
+        # uint8 pack selects exactly
+        oversample = 16 if pack.dtype in ("int8", "int8f") else 4
     q_pad = _round_up(q, q_tile)
     qp = torch.zeros((q_pad, d_pad), dtype=torch.float32,
                      device=queries.device)
@@ -487,10 +576,11 @@ def _shortlist_rows(
             width = nprobe = probes
     inv = bmap = None
     if nprobe is not None:
-        if pure_i8:
+        if pack.integer:
             raise ValueError(
-                "probes= (block pruning) requires dtype='bfloat16' or "
-                "'int8f': the pure-int8 scan has no pruned variant"
+                f"probes= (block pruning) requires dtype='bfloat16' or "
+                f"'int8f', not {pack.dtype!r}: the integer scan has no "
+                "pruned variant"
             )
         if pack.cent is None:
             raise ValueError(
@@ -505,10 +595,11 @@ def _shortlist_rows(
     # scores, as lax.top_k); each carries w = block/m candidate rows
     k_scan = min(k * oversample, m)
     qs = _scan_queries(pack, qp)
-    if pure_i8:
-        # exact integer scores; the block ids come from their own output
+    if pack.integer:
+        # integer scores; the block ids come from their own output
         with span("vdb_torch.knn.scan"):
-            scores, ids = bucket_scan_i8(pack.vn, pack.vb, qs, m=m)
+            scores, ids = bucket_scan_i8(pack.vn, pack.vb, qs, m=m,
+                                         uint8=pack.dtype == "uint8")
         pos = torch.sort(scores[:q], dim=1, stable=True).indices[:, :k_scan]
         blk = ids[:q].gather(1, pos).to(torch.int64)
     else:
@@ -532,10 +623,13 @@ def _shortlist_rows(
 def _rerank(pack: PackedDB, queries, short_rows, *, k: int, row_mask=None):
     """The exact f32 rerank of the shortlist ``short_rows`` ``[Q, S]``:
     ``(rows [Q, k], sq_dists [Q, k])`` as ``pallas_scan_knn_packed``
-    returns them."""
+    returns them. Counts its queries and the shortlist rows it gathers
+    (``knn.shortlist_queries``, ``knn.shortlist_rows``)."""
     n = pack.n
     safe = short_rows.clamp(0, n - 1)
     cand = pack.vectors[safe]  # [Q, S, D]
+    COUNTERS["knn.shortlist_queries"] += short_rows.shape[0]
+    COUNTERS["knn.shortlist_rows"] += short_rows.numel()
     if pack.metric == "ip":
         key = -torch.sum(cand * queries[:, None, :], dim=-1)
     else:

@@ -95,8 +95,9 @@ class PackedServer:
     @classmethod
     def from_vectors(cls, vectors, *, k: int = 10, batch: int = 1024,
                      **pack_kw) -> "PackedServer":
-        """Pack ``vectors`` once (``pack_database(**pack_kw)``) and wrap
-        the result; the steady-state serving constructor. The serve
+        """Pack ``vectors`` once (``pack_database(**pack_kw)``, any of its
+        forms: ``dtype="uint8"`` serves integer rows in [0, 255] exactly)
+        and wrap the result; the steady-state serving constructor. The serve
         keywords (``q_tile``, ``oversample``, ``probes``, ``probes_max``,
         ``min_probe_batch``) are split off for the server."""
         serve_kw = {key: pack_kw.pop(key) for key in (

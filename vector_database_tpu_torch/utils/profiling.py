@@ -36,7 +36,8 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 # Process-wide counts, never reset by the program (readers take
-# differences): the scan kernels' launches by block type, the real
+# differences): the scan kernels' launches by pack form, the queries the
+# exact rerank took and the shortlist rows it gathered, the real
 # queries served and the wave slots they filled (``PackedServer.query``),
 # the segment-moments kernel's launches (one a level of a fused build
 # on the card), and ``DynamicIndex``'s mutations: rows added and removed,
@@ -48,6 +49,9 @@ COUNTERS = dict.fromkeys((
     "scan.launches.bf16",
     "scan.launches.int8f",
     "scan.launches.int8",
+    "scan.launches.uint8",
+    "knn.shortlist_queries",
+    "knn.shortlist_rows",
     "serve.queries",
     "serve.slots",
     "build.moments.launches",
